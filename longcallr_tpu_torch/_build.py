@@ -56,9 +56,11 @@ def _fingerprint(srcs) -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.split_dual_matvec_rows.restype = i
-    lib.split_dual_matvec_rows.argtypes = [vp, vp, ll, vp, vp, i, i, i, vp]
+    lib.split_dual_matvec_rows.argtypes = [vp, vp, ll, vp, vp, i, i, i, i, i,
+                                           vp]
     lib.split_matvec_cols.restype = i
-    lib.split_matvec_cols.argtypes = [vp, vp, ll, vp, vp, vp, i, i, i, i, vp]
+    lib.split_matvec_cols.argtypes = [vp, vp, ll, vp, vp, vp, vp, i, i, i, i,
+                                      i, i, i, vp]
 
 
 def load() -> ctypes.CDLL:

@@ -22,8 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from longcallr_tpu.config import CallerConfig
-from longcallr_tpu.tiles.pileup import PileupTensors
+from ..config import CallerConfig
+from ..tiles.pileup import PileupTensors
 
 # tables and thresholds: the same numpy values as the JAX package
 # (binomial two-tailed test for n <= 30 from scipy, SOR threshold in f32)

@@ -29,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from longcallr_tpu.config import CallerConfig
+from ..config import CallerConfig
 
 from ..ops.candidates import CandidateSet
 from .fragments import FragmentMatrix
@@ -82,7 +82,7 @@ def _native_assign_lib():
 
     if os.environ.get("LONGCALLR_NATIVE_ASSIGN", "1") == "0":
         return None
-    from longcallr_tpu import native
+    from .. import native
 
     nlib = native.lib()
     if nlib is None or not hasattr(nlib, "assign_group_hist"):

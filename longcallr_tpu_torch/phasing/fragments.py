@@ -23,8 +23,7 @@ The reference also accumulates ``SNPFrag.edges`` (fragment.rs:266-292), but
 no live code path consumes them — not materialised here.
 
 Copied from ``longcallr_tpu/phasing/fragments.py`` (host numpy code, the
-same logic); the imports differ — ``CandidateSet`` comes from the torch
-package, everything else from the jax-free modules of ``longcallr_tpu`` —
+same logic); the imports differ — every module comes from the torch package —
 and comments that cited the JAX package's host timings are shortened.
 """
 
@@ -37,9 +36,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from longcallr_tpu.config import CallerConfig, MAX_BASE_QUALITY
-from longcallr_tpu.io.bam import BamFile
-from longcallr_tpu.tiles.regions import Region
+from ..config import CallerConfig, MAX_BASE_QUALITY
+from ..io.bam import BamFile
+from ..tiles.regions import Region
 
 from ..ops.candidates import CandidateSet
 
@@ -174,7 +173,7 @@ def _extract_cells_flat(bam: BamFile, eligible: List[int], cands: CandidateSet,
     cand_pos = cands.pos
     K = len(eligible)
     if use_native and eligible:
-        from longcallr_tpu import native
+        from .. import native
         nlib = native.lib()
         if nlib is not None:
             import ctypes
@@ -362,7 +361,7 @@ def get_fragments(bam: BamFile, region: Region, cands: CandidateSet,
         if I <= LD_DENSE_MAX_I:
             ld_counts = None
             if use_native:
-                from longcallr_tpu import native
+                from .. import native
                 nlib = native.lib()
                 if nlib is not None and hasattr(nlib, "ld_pair_counts"):
                     ld_counts = _ld_counts_native(nlib, P, ld_cols,
@@ -450,7 +449,7 @@ def gather_somatic_hap_quals(bam: BamFile, region: Region,
     (the reference's ``self.somatic_snps`` is never mutated after
     candidate.rs:414). Routing by read assignment happens later in
     ``ops.somatic.detect_somatic_by_het``."""
-    from longcallr_tpu.io.bam import FLAG_SECONDARY, FLAG_SUPPLEMENTARY, FLAG_UNMAPPED
+    from ..io.bam import FLAG_SECONDARY, FLAG_SUPPLEMENTARY, FLAG_UNMAPPED
 
     som_idx = np.nonzero(cands.cand_somatic)[0]
     if som_idx.size == 0:

@@ -23,7 +23,7 @@ from typing import NamedTuple, Tuple
 import numpy as _np
 import torch
 
-from longcallr_tpu.config import MAX_BASE_QUALITY
+from ..config import MAX_BASE_QUALITY
 
 f64 = torch.float64
 

@@ -237,13 +237,15 @@ def fast_tables32_from_compact(cc, read_mask, site_mask) -> FastTables32:
 def _matvec_rows(dp2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Dp @ x for x [..., I, 2] (both columns in one pass over Dp) on the
     split tables → [..., K, 2] f64 (cuda_kernels.dual_matvec_rows)."""
-    return CK.dual_matvec_rows(dp2[0], dp2[1], x.to(f64).contiguous())
+    return CK.dual_matvec_rows(dp2[0], dp2[1],
+                               x if x.dtype is f64 else x.to(f64))
 
 
 def _matvec_cols(dp2: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Dpᵀ @ s for s [..., K] on the split tables → [..., I] f64
     (cuda_kernels.matvec_cols)."""
-    return CK.matvec_cols(dp2[0], dp2[1], s.to(f64).contiguous())
+    return CK.matvec_cols(dp2[0], dp2[1],
+                          s if s.dtype is f64 else s.to(f64))
 
 
 def fast_read_logliks32(ft: FastTables32, delta, eta):

@@ -34,7 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from longcallr_tpu.config import CallerConfig
+from ..config import CallerConfig
 
 from ..ops.candidates import CandidateSet
 from . import kernels_fast as KF

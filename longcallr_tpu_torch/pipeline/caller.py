@@ -25,19 +25,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from longcallr_tpu.config import CallerConfig
-from longcallr_tpu.io.bam import (BamFile, BamWriter, tagged_record_indices,
-                                  write_tagged_records)
-from longcallr_tpu.io.fasta import FastaFile
-from longcallr_tpu.io.vcf import load_input_candidates, write_vcf_header
-from longcallr_tpu.pipeline.annotation import (intersect_gene_regions,
-                                               parse_annotation)
-from longcallr_tpu.tiles.regions import Region, extract_isolated_regions_parallel
-
+from ..config import CallerConfig
+from ..io.bam import (BamFile, BamWriter, tagged_record_indices,
+                      write_tagged_records)
+from ..io.fasta import FastaFile
+from ..io.vcf import load_input_candidates, write_vcf_header
 from ..phasing import optimize as _opt
+from ..tiles.regions import Region, extract_isolated_regions_parallel
+from .annotation import intersect_gene_regions, parse_annotation
 from .engine import STAGE_TOTALS, RegionResult, process_region
 
-log = logging.getLogger("longcallr_tpu")
+log = logging.getLogger("longcallr_tpu_torch")
 
 # ROADMAP.md "torch port" queue items for what this slice leaves out
 BATCHED_ITEM = "ROADMAP.md torch port queue: batched bucket programs"

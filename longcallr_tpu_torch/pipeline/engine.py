@@ -21,11 +21,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from longcallr_tpu.config import CallerConfig
-from longcallr_tpu.io.bam import BamFile
-from longcallr_tpu.io.vcf import GenotypeAndQuality, format_region_records
-from longcallr_tpu.tiles.pileup import build_pileup
-from longcallr_tpu.tiles.regions import Region
+from ..config import CallerConfig
+from ..io.bam import BamFile
+from ..io.vcf import GenotypeAndQuality, format_region_records
+from ..tiles.pileup import build_pileup
+from ..tiles.regions import Region
 
 from ..ops.candidates import CandidateSet, select_candidates
 from ..phasing import assign as A
@@ -189,7 +189,7 @@ def process_region(bam: BamFile, region: Region, ref_seq: np.ndarray,
         if cfg.somatic:
             # somatic-by-het (disabled in the reference default path,
             # thread.rs:185-187)
-            from longcallr_tpu.ops.somatic import detect_somatic_by_het
+            from ..ops.somatic import detect_somatic_by_het
             detect_somatic_by_het(frags, cands, cfg.somatic_purity)
         phase_sets = A.assign_phase_set(frags, cands, cfg.min_phase_score)
         stage_add("assign", time.monotonic() - _t)

@@ -1,0 +1,5 @@
+"""Copied from ``longcallr_tpu/tiles/__init__.py``: the torch port
+imports nothing of that package and keeps its own copy of what it needs.
+The code is unchanged.
+"""
+

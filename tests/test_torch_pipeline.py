@@ -17,25 +17,26 @@ import numpy as np
 import pytest
 import torch
 
-from longcallr_tpu.config import preset
+from longcallr_tpu_torch.config import preset
 from longcallr_tpu_torch.pipeline.caller import run
-from simulate import make_reference, plant_snps, simulate_bam
-
-import chip_smoke
+from longcallr_tpu_torch.utils import goldens
+from longcallr_tpu_torch.utils.simulate import (make_reference, plant_snps,
+                                                simulate_bam)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", chip_smoke.GOLDEN_NAMES)
+@pytest.mark.parametrize("name", goldens.GOLDEN_NAMES)
 def test_preset_golden_on_cpu(tmp_path, name):
     """The workloads of tests/test_golden_presets.py, same seeds and calls
-    (built by chip_smoke.py, which runs the same check on the card)."""
-    bam, fa, cfg, anno = chip_smoke.golden_workload(name, str(tmp_path))
+    (built by utils/goldens.py; chip_smoke.py runs the same check on the
+    card)."""
+    bam, fa, cfg, anno = goldens.golden_workload(name, str(tmp_path))
     out = run(bam, fa, str(tmp_path / "out"), cfg, anno_path=anno,
               device=CPU)
-    got = chip_smoke.records_and_tags(out.vcf_path, out.phased_bam_path)
-    assert got == chip_smoke.golden(name)
+    got = goldens.records_and_tags(out.vcf_path, out.phased_bam_path)
+    assert got == goldens.golden(name)
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -59,14 +60,16 @@ def _fresh_workload(tmp_path):
 
 
 def test_run_matches_jax_run(tmp_path):
+    from longcallr_tpu.config import preset as jax_preset
     from longcallr_tpu.pipeline.caller import run as jax_run
 
     bam, fa = _fresh_workload(tmp_path)
     cfg = preset("hifi-masseq").replace(threads=2)
-    want = jax_run(bam, fa, str(tmp_path / "jax"), cfg)
+    want = jax_run(bam, fa, str(tmp_path / "jax"),
+                   jax_preset("hifi-masseq").replace(threads=2))
     got = run(bam, fa, str(tmp_path / "torch"), cfg, device=CPU)
-    a = chip_smoke.records_and_tags(got.vcf_path, got.phased_bam_path)
-    b = chip_smoke.records_and_tags(want.vcf_path, want.phased_bam_path)
+    a = goldens.records_and_tags(got.vcf_path, got.phased_bam_path)
+    b = goldens.records_and_tags(want.vcf_path, want.phased_bam_path)
     assert a[0] and a[1]
     assert a == b
     assert got.n_phased_sites == want.n_phased_sites > 0
@@ -87,9 +90,9 @@ def test_cli_cpu_and_get_blocks(tmp_path):
     assert "on cpu" in res.stdout
     out = run(bam, fa, str(tmp_path / "direct"),
               preset("hifi-masseq").replace(threads=1), device=CPU)
-    assert (chip_smoke.records_and_tags(str(tmp_path / "cli.vcf"),
+    assert (goldens.records_and_tags(str(tmp_path / "cli.vcf"),
                               str(tmp_path / "cli.phased.bam"))
-            == chip_smoke.records_and_tags(out.vcf_path, out.phased_bam_path))
+            == goldens.records_and_tags(out.vcf_path, out.phased_bam_path))
     res = _cli("-b", bam, "-f", fa, "-o", str(tmp_path / "gb"), "-p",
                "hifi-masseq", "--get-blocks")
     assert res.returncode == 0, res.stderr
