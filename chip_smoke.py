@@ -14,11 +14,18 @@ package) and fails on the first check that does not hold:
                (I not a multiple of 4; a table that is not 16-byte
                aligned); then 4 host threads call matvec_cols at once, two
                on the default stream and two on streams of their own.
-               At the two main-path shapes, deep (1, 4096, 512) and
-               enumeration (64, 512, 16, one shared Dp), each kernel is
-               timed beside its plain version and the one library call
-               that computes the same function (torch.matmul on the f64
-               table, the widening not counted): the host time of a wrapper
+               At the main-path shapes — deep (1, 4096, 512), enumeration
+               (64, 512, 16, one shared Dp), a deep bucket (4, 4096, 512:
+               four tables, one member each), the bucket of a default wave
+               of the deep input (2, 4096, 512), an enumeration bucket
+               (4 tables of (512, 16), 64 members per table) and the two
+               shapes that the enumeration workload of phase 6 launches (12
+               tables of (64, 8) with 16 members each; 16 members on one
+               (64, 8) table) — each kernel
+               is timed beside its plain version and
+               the one library call that computes the same function
+               (torch.matmul / torch.bmm on the f64 tables, the widening
+               not counted): the host time of a wrapper
                call and the median time of one call between CUDA events
                (both before the profiler first runs), then the device time
                per call from torch.profiler with the table warm in L2 and
@@ -27,24 +34,55 @@ package) and fails on the first check that does not hold:
                read once, rows with σ = 0 not counted, the result written
                once) and f64 operations / 33.5 TFLOP/s (half the card's
                float32 rate outside the tensor cores);
-  3. goldens — the four simulated preset workloads of the JAX package's
-               golden tests through caller.run on the card, records and
+  3. tables  — the split-table build on a bucket of four deep regions
+               against the build of each region alone;
+  4. goldens — the four simulated preset workloads of the JAX package's
+               golden tests through caller.run on the card, as the caller
+               resolves them and once more with batched=True, records and
                HP/PS tags byte-equal to tests/golden/preset_*;
-  4. deep    — the deep workload (4 loci x 80 kb, 150x, 3 kb reads) through
-               the CLI's main(); launch counts of both kernels are reset
-               just before and read just after, and must be > 0;
-  5. split vs f64 — the same input with LONGCALLR_F32_KERNELS=0 (f64 path
-               on the card) must give byte-identical records and tags;
-  6. imports — neither jax nor any longcallr_tpu module was imported.
+  5. deep    — the deep workload (4 loci x 80 kb, 150x, 3 kb reads) through
+               the CLI's main() with --no-batched (the per-region loop);
+               launch counts of both kernels are reset just before and
+               read just after, and must be > 0;
+  6. batched — (a) the same input with no --batched flag: it must take the
+               batched pipeline, launch both kernels, and write the VCF
+               bytes and phased-BAM payload of the per-region run; the
+               stage counters and the bucket census are printed; (d) the
+               genome workload (3 contigs, 8 loci, one 300x locus) batched
+               and --no-batched: equal; (e) the deep input cut into >= 3
+               waves (LONGCALLR_WAVE_CELLS) with the write overlap on:
+               equal to (a); (f) the deep input as one wave, its four
+               regions in one bucket: equal to (a), with the peak of the
+               device memory; (h) the same with the finalize fan-out on
+               (LONGCALLR_FINALIZE_MT_CELLS): equal to (a); (g) twelve
+               small loci of four SNPs each, which phase as enumeration
+               buckets (regions x configs on the members-per-table form of
+               the kernels), batched and --no-batched: equal, and both once
+               more in forced split mode, where no region is recomputed in
+               f64: equal. Every run that the kernel summary counts must
+               have launched the kernels only at shapes that phase 2
+               checked;
+  7. split vs f64 — (c) the deep input with LONGCALLR_F32_KERNELS=0 (f64
+               path on the card), batched and --no-batched, each in a
+               fresh process: byte-identical to the split runs;
+  8. imports — neither jax nor any longcallr_tpu module was imported.
 
 Each phase prints one JSON line. Then the kernel summary line (``ms``,
-``plain_ms`` and ``library_ms`` are device times per call with the table
-warm in L2, at the deep shape), the card's name and power limit
-(nvidia-smi), and last the result line.
+``plain_ms`` and ``library_ms`` are device times per call with the tables
+warm in L2, at the shape the default batched run of the deep input
+launches: the bucket of two regions that a default wave makes; ``shapes``
+holds the same numbers for every timed shape, among them ``deep_bucket``,
+the four deep regions in one wave; ``launches`` counts the default batched
+deep run, ``launches_per_region`` the per-region one,
+``launches_one_wave`` the run of (f), ``launches_enum`` and
+``launches_enum_per_region`` the two runs of (g); each timed shape lists
+under ``launched_by`` the runs that launched the kernel there), the card's
+name and power limit (nvidia-smi), and last the result line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -67,12 +105,60 @@ PEAK_F64_FLOPS = 67e12 / 2
 # written between two calls to push the table out of the 50 MB L2
 FLUSH_BYTES = 256 << 20
 
-# names of the kernels that flush the L2 between two timed calls
-_FLUSH_KERNELS = ("FillFunctor", "Memset", "reduce_kernel")
+# names of the kernels that flush the L2 between two timed calls (zero_ and
+# sum of a float32 buffer); left out of a cold timing, and of nothing else:
+# cuBLAS has a "splitKreduce_kernel" of its own
+_FLUSH_KERNELS = ("FillFunctor", "Memset", "at::native::reduce_kernel")
 
+# (B, K, I, shared Dp[, members per table]): B operands over one shared
+# table, or B tables with one member each, or B tables with C members each
 DEEP = (1, 4096, 512, True)
 ENUM = (64, 512, 16, True)
+DEEP_BUCKET = (4, 4096, 512, False)
+DEEP_WAVE = (2, 4096, 512, False)
+ENUM_BUCKET = (4, 512, 16, False, 64)
+# what the enumeration workload of phase_batched (g) launches: its bucket of
+# 12 regions x 16 configs, and one region's 16 configs on the per-region loop
+ENUM_RUN_BUCKET = (12, 64, 8, False, 16)
+ENUM_RUN_REGION = (16, 64, 8, True)
+TIMED = {DEEP: "deep", ENUM: "enum", DEEP_BUCKET: "deep_bucket",
+         DEEP_WAVE: "deep_wave", ENUM_BUCKET: "enum_bucket",
+         ENUM_RUN_BUCKET: "enum_run_bucket",
+         ENUM_RUN_REGION: "enum_run_region"}
+# every shape phase_kernels holds against the plain versions: the main-path
+# shapes first, then unaligned ones
+CHECKED_SHAPES = [DEEP, ENUM, DEEP_BUCKET, DEEP_WAVE, ENUM_BUCKET,
+                  ENUM_RUN_BUCKET, ENUM_RUN_REGION,
+                  (1, 37, 300, False), (1, 1025, 129, False),
+                  (1, 513, 700, False), (1, 4096, 510, False),
+                  (5, 300, 64, False), (3, 200, 24, False, 5)]
 KERNEL_NAMES = ("dual_matvec_rows", "matvec_cols")
+
+
+def _launch_key(shape) -> tuple:
+    """A shape of CHECKED_SHAPES as the wrappers record a launch: (tables,
+    K, I, members per table)."""
+    B, K, I, shared = shape[:4]
+    if shared:
+        return (1, K, I, B)
+    return (B, K, I, shape[4] if len(shape) > 4 else 1)
+
+
+def _launched_shapes(what: str) -> dict:
+    """The shapes the run just made launched the kernels at, by kernel.
+    Fails if one of them is a shape that phase_kernels did not hold against
+    the plain version."""
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+
+    checked = {_launch_key(s) for s in CHECKED_SHAPES}
+    seen = {n: sorted(CK.LAUNCH_SHAPES[n]) for n in KERNEL_NAMES}
+    for n, shapes in seen.items():
+        missing = [s for s in shapes if s not in checked]
+        if missing:
+            raise AssertionError(f"{what}: {n} was launched at {missing} "
+                                 f"(tables, K, I, members per table), which "
+                                 f"the kernels phase did not check")
+    return {n: [list(s) for s in shapes] for n, shapes in seen.items()}
 
 
 def _card() -> str:
@@ -117,12 +203,50 @@ def _host_ms(fn, n: int = 400) -> float:
     return dt * 1e3 / n
 
 
+# how _device_ms read its times; "cuda events" once the profiler traced
+# nothing on this machine
+DEVICE_TIMER = {"by": "torch.profiler"}
+
+
+def _events_ms(fn, flush, n: int) -> float:
+    """Time per call (ms) between CUDA events: warm, n calls enqueued back
+    to back between one pair of events; cold, the median over n calls of a
+    pair of events around each call, the flush before it."""
+    if flush is None:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / n
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        flush.sum()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
 def _device_ms(fn, flush=None, n: int = 20) -> float:
     """Device time per call (ms) from torch.profiler: the sum of every
     kernel's device time over n calls, divided by n. With ``flush`` (a
     buffer larger than the L2) the buffer is zeroed and summed before every
     call, so that the call finds its inputs in device memory, and the time
-    of those two kernels is left out."""
+    of those two kernels is left out. Where the profiler traces no kernel
+    (a machine that keeps CUPTI from it), the times come from CUDA events
+    (``_events_ms``) for the rest of the run, and DEVICE_TIMER says so."""
+    if DEVICE_TIMER["by"] != "torch.profiler":
+        fn()
+        torch.cuda.synchronize()
+        return _events_ms(fn, flush, n)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -139,9 +263,13 @@ def _device_ms(fn, flush=None, n: int = 20) -> float:
     # kernel rows only: an operator's row repeats its kernels' device time
     total_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and not any(w in e.key for w in _FLUSH_KERNELS))
+                   and not (flush is not None
+                            and any(w in e.key for w in _FLUSH_KERNELS)))
     if not total_us > 0:
-        raise AssertionError("torch.profiler reported no device time")
+        print("chip_smoke: torch.profiler traced no kernel; device times "
+              "are taken between CUDA events", file=sys.stderr)
+        DEVICE_TIMER["by"] = "cuda events"
+        return _events_ms(fn, flush, n)
     return total_us / 1e3 / n
 
 
@@ -184,25 +312,19 @@ def _check(name, row, kern, plain, hi, lo, op, stats):
 
 def _bound(name: str, hi, op, out_numel: int):
     """(bound ms, bound by, bytes, f64 operations) of one call on these
-    inputs: hi and lo read once (for matvec_cols only the rows some batch
-    member's σ needs), the operand read once, the result written once; per
-    cell one widening add and one multiply-add per operand column."""
+    inputs: hi and lo read once (for matvec_cols only the rows that some
+    member of the table's σ needs), the operand read once, the result
+    written once; per cell one widening add and one multiply-add per
+    operand column."""
     K, I = hi.shape[-2], hi.shape[-1]
     tables = hi.shape[0] if hi.dim() == 3 else 1
-    B = op.shape[0] if op.dim() == (3 if name == "dual_matvec_rows" else 2) \
-        else 1
     if name == "matvec_cols":
-        s = op.reshape(-1, K)
-        if tables == 1:
-            rows = int((s != 0).any(dim=0).sum())
-        else:
-            rows = int((s != 0).sum())
-        cells_read = rows * I
-        cells_used = int((s != 0).sum()) * I
-        flops = cells_used * 3
+        s = op.reshape(tables, -1, K)           # [tables, members each, K]
+        cells_read = int((s != 0).any(dim=1).sum()) * I
+        flops = int((s != 0).sum()) * I * 3
     else:
         cells_read = tables * K * I
-        flops = B * K * I * 5
+        flops = (op.numel() // (I * 2)) * K * I * 5
     nbytes = cells_read * 8 + op.numel() * 8 + out_numel * 8
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F64_FLOPS * 1e3
@@ -211,20 +333,36 @@ def _bound(name: str, hi, op, out_numel: int):
 
 
 def _library_call(name, hi, lo, op):
-    """The one PyTorch call that computes the same function: a matmul on
-    the f64 table, which is widened here, outside what is timed."""
+    """The one PyTorch call that computes the same function: a matmul (a
+    bmm for a batch of tables) on the f64 tables, which are widened here,
+    outside what is timed. Returns (the call, a function that brings its
+    result into the kernel's layout)."""
     dpd = hi.double() + lo.double()
-    if name == "dual_matvec_rows":
-        return lambda: torch.matmul(dpd, op)
-    return lambda: torch.matmul(op, dpd)
+    same = lambda r: r
+    if dpd.dim() == 2:
+        if name == "dual_matvec_rows":
+            return (lambda: torch.matmul(dpd, op)), same
+        return (lambda: torch.matmul(op, dpd)), same
+    B, K, I = dpd.shape
+    if name == "matvec_cols":
+        if op.dim() == 3:                       # [B,C,K] @ [B,K,I]
+            return (lambda: torch.bmm(op, dpd)), same
+        sb = op[:, None, :].contiguous()
+        return (lambda: torch.bmm(sb, dpd)), lambda r: r[:, 0]
+    if op.dim() == 3:                           # [B,K,I] @ [B,I,2]
+        return (lambda: torch.bmm(dpd, op)), same
+    C = op.shape[1]                             # members side by side
+    xr = op.permute(0, 2, 1, 3).reshape(B, I, C * 2).contiguous()
+    return ((lambda: torch.bmm(dpd, xr)),
+            lambda r: r.reshape(B, K, C, 2).permute(0, 2, 1, 3))
 
 
 def _time_host(name, kern, plain, hi, lo, op) -> dict:
     """Per-call times that include host work (ms). Taken before the
     profiler first runs in the process, so that no hook of it can sit in
     the launch path."""
-    lib = _library_call(name, hi, lo, op)
-    out, want = kern(hi, lo, op), lib()
+    lib, as_out = _library_call(name, hi, lo, op)
+    out, want = kern(hi, lo, op), as_out(lib())
     torch.cuda.synchronize()
     rel = float((out - want).abs().max()) / max(float(want.abs().max()), 1e-300)
     if not rel <= REL_TOL:
@@ -237,7 +375,7 @@ def _time_host(name, kern, plain, hi, lo, op) -> dict:
 
 def _time_device(name, kern, plain, hi, lo, op, flush) -> dict:
     """Device times of one kernel at one shape beside its bound (ms)."""
-    lib = _library_call(name, hi, lo, op)
+    lib, _ = _library_call(name, hi, lo, op)
     bound_ms, bound_by, nbytes, flops = _bound(name, hi, op,
                                                kern(hi, lo, op).numel())
     k = lambda: kern(hi, lo, op)
@@ -313,33 +451,44 @@ def phase_kernels(card: str, dev):
     stats = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0}
              for n in KERNEL_NAMES}
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    # (B, K, I, shared Dp) — the two main-path shapes first
-    shapes = [DEEP, ENUM, (1, 37, 300, False), (1, 1025, 129, False),
-              (1, 513, 700, False), (1, 4096, 510, False),
-              (5, 300, 64, False)]
     rows, timed = [], []
-    for B, K, I, shared in shapes:
+    for shape in CHECKED_SHAPES:
+        B, K, I, shared = shape[:4]
+        C = shape[4] if len(shape) > 4 else None
         hl_shape = (K, I) if (shared or B == 1) else (B, K, I)
         hi, lo = _split_dp(rng, hl_shape, dev)
-        xb = (B, I, 2) if B > 1 else (I, 2)
-        sb = (B, K) if B > 1 else (K,)
-        x = torch.as_tensor(rng.integers(-1, 2, size=xb).astype(np.float64),
-                            device=dev)
-        s = torch.as_tensor(rng.integers(-1, 2, size=sb).astype(np.float64),
-                            device=dev)
-        if (B, K, I, shared) == DEEP:
+        lead = () if B == 1 else ((B,) if C is None else (B, C))
+        x = torch.as_tensor(
+            rng.integers(-1, 2, size=lead + (I, 2)).astype(np.float64),
+            device=dev)
+        s = torch.as_tensor(
+            rng.integers(-1, 2, size=lead + (K,)).astype(np.float64),
+            device=dev)
+        if shape in (DEEP, DEEP_BUCKET, DEEP_WAVE):
             # a deep region's σ: every read on a haplotype, the padded tail 0
-            s = torch.as_tensor(rng.choice([-1.0, 1.0], size=K), device=dev)
-            s[4000:] = 0.0
-        row = {"B": B, "K": K, "I": I, "shared_dp": shared}
+            s = torch.as_tensor(rng.choice([-1.0, 1.0], size=lead + (K,)),
+                                device=dev)
+            s[..., 4000:] = 0.0
+        row = {"B": B, "K": K, "I": I, "shared_dp": shared,
+               "members_per_table": C}
         for name, op in (("dual_matvec_rows", x), ("matvec_cols", s)):
             kern, plain = kerns[name]
             row[name] = _check(name, row, kern, plain, hi, lo, op, stats)
-            if (B, K, I, shared) in (DEEP, ENUM):
+            if shape in TIMED:
                 row[name].update(_time_host(name, kern, plain, hi, lo, op))
-                key = "deep" if (B, K, I, shared) == DEEP else "enum"
-                stats[name][key] = row[name]
+                stats[name][TIMED[shape]] = row[name]
                 timed.append((name, row[name], hi, lo, op))
+        if C is not None:
+            # the same members named flat, with the wrapper's argument
+            for name, op, nd in (("dual_matvec_rows", x, 2),
+                                 ("matvec_cols", s, 1)):
+                kern = kerns[name][0]
+                flat = kern(hi, lo, op.reshape(B * C, *op.shape[-nd:]),
+                            members_per_table=C)
+                if not torch.equal(flat.reshape(kern(hi, lo, op).shape),
+                                   kern(hi, lo, op)):
+                    raise AssertionError(f"{name} {row}: members_per_table "
+                                         f"gives another result")
         rows.append(row)
     for name, res, hi, lo, op in timed:
         res.update(_time_device(name, *kerns[name], hi, lo, op, flush))
@@ -376,9 +525,51 @@ def phase_kernels(card: str, dev):
         cases.append(res)
 
     threaded = _threads_check(CK, rng, dev)
-    _emit("kernels", card, rel_tol=REL_TOL, shapes=rows, cols_cases=cases,
-          threaded=threaded)
+    _emit("kernels", card, rel_tol=REL_TOL, device_ms_by=DEVICE_TIMER["by"],
+          shapes=rows, cols_cases=cases, threaded=threaded)
     return stats
+
+
+def phase_tables(card: str, dev) -> None:
+    """The split-table build on a bucket of four deep regions ([4, 4096,
+    512] cells) against the build of each region alone: Dp must be equal
+    bit for bit, the vectors to 1e-9 (whether they are bit-identical too is
+    reported)."""
+    from longcallr_tpu_torch.phasing import kernels_fast as KF
+    from longcallr_tpu_torch.phasing.kernels import CompactCells
+
+    rng = np.random.default_rng(20261017)
+    B, K, I = DEEP_BUCKET[:3]
+    p = torch.as_tensor(rng.choice([-1, 0, 1], size=(B, K, I),
+                                   p=[0.35, 0.3, 0.35]).astype(np.int8),
+                        device=dev)
+    q = torch.as_tensor(rng.integers(3, 31, size=(B, K, I)).astype(np.uint8),
+                        device=dev)
+    rm = torch.as_tensor(rng.random((B, K)) < 0.97, device=dev)
+    sm = torch.as_tensor(rng.random((B, I)) < 0.95, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ft = KF.fast_tables32_from_compact(CompactCells(p, q), rm, sm)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    worst, identical = 0.0, True
+    for b in range(B):
+        one = KF.fast_tables32_from_compact(CompactCells(p[b], q[b]), rm[b],
+                                            sm[b])
+        if not torch.equal(ft.dp2[:, b], one.dp2):
+            raise AssertionError(f"tables: Dp of member {b} differs")
+        for name, a, w in zip(ft._fields[1:], ft[1:], one[1:]):
+            if not torch.equal(a[b], w):
+                identical = False
+                d = float((a[b].double() - w.double()).abs().max())
+                worst = max(worst, d)
+                if not d <= 1e-9:
+                    raise AssertionError(f"tables: {name} of member {b} "
+                                         f"differs by {d}")
+    _emit("tables", card, shape=[B, K, I], build_seconds=build_s,
+          dp_bit_identical=True, vectors_bit_identical=identical,
+          vectors_max_abs_diff=worst,
+          peak_bytes=torch.cuda.max_memory_allocated(dev))
 
 
 def phase_goldens(card: str, dev, tmp: str) -> None:
@@ -389,20 +580,22 @@ def phase_goldens(card: str, dev, tmp: str) -> None:
 
     done = []
     for name in goldens.GOLDEN_NAMES:
-        t0 = time.monotonic()
-        bam, fa, cfg, anno = goldens.golden_workload(name, tmp)
-        out = run(bam, fa, os.path.join(tmp, f"out_{name}"), cfg,
-                  anno_path=anno, device=dev)
-        recs, tags = goldens.records_and_tags(out.vcf_path,
-                                              out.phased_bam_path)
-        want_recs, want_tags = goldens.golden(name)
-        if recs != want_recs or tags != want_tags:
-            raise AssertionError(f"golden {name}: records equal "
-                                 f"{recs == want_recs}, tags equal "
-                                 f"{tags == want_tags}")
-        done.append({"workload": name, "records": len(recs),
-                     "tags": len(tags), "byte_equal": True,
-                     "seconds": time.monotonic() - t0})
+        for batched in (None, True):
+            t0 = time.monotonic()
+            bam, fa, cfg, anno = goldens.golden_workload(name, tmp)
+            out = run(bam, fa, os.path.join(tmp, f"out_{name}_{batched}"),
+                      cfg, anno_path=anno, batched=batched, device=dev)
+            recs, tags = goldens.records_and_tags(out.vcf_path,
+                                                  out.phased_bam_path)
+            want_recs, want_tags = goldens.golden(name)
+            if recs != want_recs or tags != want_tags:
+                raise AssertionError(f"golden {name} (batched={batched}): "
+                                     f"records equal {recs == want_recs}, "
+                                     f"tags equal {tags == want_tags}")
+            done.append({"workload": name, "batched": batched,
+                         "regions": out.n_regions, "records": len(recs),
+                         "tags": len(tags), "byte_equal": True,
+                         "seconds": time.monotonic() - t0})
 
     if not os.path.exists(demo.DEMO_BAM):
         done.append({"workload": "demo_chr20", "skipped": True,
@@ -426,8 +619,25 @@ def phase_goldens(card: str, dev, tmp: str) -> None:
     _emit("goldens", card, workloads=done)
 
 
+def _payloads(prefix: str):
+    """(VCF bytes, BGZF payload of the phased BAM) of one run."""
+    from longcallr_tpu_torch.io.bgzf import decompress_file
+
+    with open(prefix + ".vcf", "rb") as f:
+        vcf = f.read()
+    return vcf, bytes(decompress_file(prefix + ".phased.bam"))
+
+
+def _census(stage: dict) -> dict:
+    keys = ("phase_buckets", "phase_enum_buckets", "phase_single_regions",
+            "phase_fused_refused", "phase_blockflip_exact",
+            "phase_safety_recompute")
+    return {k: int(stage.get(k, 0)) for k in keys}
+
+
 def phase_deep(card: str, tmp: str):
-    """The deep workload through the CLI's main() on the card."""
+    """The deep workload through the CLI's main() on the card, on the
+    per-region loop (--no-batched)."""
     from longcallr_tpu_torch import cli
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.utils.bench_workload import make_deep_workload
@@ -439,7 +649,7 @@ def phase_deep(card: str, tmp: str):
     gen_s = time.monotonic() - t0
     prefix = os.path.join(tmp, "deep_split")
     argv = ["-b", bam, "-f", fa, "-o", prefix, "-p", "hifi-masseq",
-            "--platform", "cuda"]
+            "--platform", "cuda", "--no-batched"]
     CK.reset_launches()
     t0 = time.monotonic()
     rc = cli.main(argv)
@@ -452,6 +662,7 @@ def phase_deep(card: str, tmp: str):
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"main path")
+    shapes = _launched_shapes("deep input, per-region loop")
     if out.n_records <= 0:
         raise AssertionError("deep run wrote no records")
     if out.n_split_kept <= 0:
@@ -461,36 +672,252 @@ def phase_deep(card: str, tmp: str):
           generate_seconds=gen_s, wall_seconds=wall,
           reads_per_second=params["n_reads"] / wall,
           stage_seconds=out.stage_seconds, launches=launches,
-          split_regions_kept=out.n_split_kept,
+          launch_shapes=shapes, split_regions_kept=out.n_split_kept,
           f64_reruns=out.n_f64_reruns)
-    return bam, fa, out, launches
+    return bam, fa, out, (launches, shapes), params["n_reads"]
 
 
-def phase_split_vs_f64(card: str, tmp: str, bam: str, fa: str, split_out):
-    """The deep input again with LONGCALLR_F32_KERNELS=0 (f64 on the card)
-    in a fresh process; outputs must be byte-identical."""
-    from longcallr_tpu_torch.utils.goldens import records_and_tags
+def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
+    """One run through the CLI's main() in this process, the launch counts
+    set to 0 just before and read just after. Returns (prefix,
+    CallerOutputs, launches, wall seconds)."""
+    from longcallr_tpu_torch import cli
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
 
-    prefix = os.path.join(tmp, "deep_f64")
-    env = dict(os.environ, LONGCALLR_F32_KERNELS="0")
-    t0 = time.monotonic()
-    res = subprocess.run(
-        [sys.executable, "-m", "longcallr_tpu_torch.cli", "-b", bam, "-f", fa,
-         "-o", prefix, "-p", "hifi-masseq", "--platform", "cuda"],
-        cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
-    wall = time.monotonic() - t0
-    if res.returncode != 0:
-        raise AssertionError(f"f64 run failed ({res.returncode}):\n"
-                             f"{res.stderr[-3000:]}")
-    a = records_and_tags(split_out.vcf_path, split_out.phased_bam_path)
-    b = records_and_tags(prefix + ".vcf", prefix + ".phased.bam")
+    prefix = os.path.join(tmp, label)
+    argv = ["-b", bam, "-f", fa, "-o", prefix, "-p", "hifi-masseq",
+            "--platform", "cuda", *extra]
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        CK.reset_launches()
+        t0 = time.monotonic()
+        rc = cli.main(argv)
+        wall = time.monotonic() - t0
+        launches = dict(CK.LAUNCHES)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        raise AssertionError(f"{label}: cli.main returned {rc}")
+    return prefix, cli.LAST_RUN, launches, wall
+
+
+def _must_equal(what: str, a, b) -> None:
     if a != b:
-        raise AssertionError(f"split vs f64: records equal {a[0] == b[0]}, "
-                             f"tags equal {a[1] == b[1]}")
-    stages = [l.strip() for l in res.stdout.splitlines()
-              if l.strip().startswith("stage ")]
-    _emit("split_vs_f64", card, byte_equal=True, records=len(a[0]),
-          tags=len(a[1]), f64_wall_seconds=wall, f64_stages=stages)
+        raise AssertionError(f"{what}: VCF bytes equal {a[0] == b[0]}, "
+                             f"phased-BAM payload equal {a[1] == b[1]}")
+
+
+@contextlib.contextmanager
+def _forced_split():
+    """Split mode forced, as LONGCALLR_F32_KERNELS=1 sets it when the
+    package is imported. The safety net then recomputes nothing."""
+    from longcallr_tpu_torch.phasing import optimize as O
+
+    saved = O.USE_F32_KERNELS
+    O.USE_F32_KERNELS = True
+    try:
+        yield
+    finally:
+        O.USE_F32_KERNELS = saved
+
+
+def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
+                  n_reads: int):
+    """The batched pipeline on the card: (a) the deep input with no
+    --batched flag, held against the per-region run (b) of phase_deep;
+    (d) the genome workload both ways; (e) the deep input in >= 3 waves
+    with the write overlap on; (f) the deep input as one wave, with the
+    peak of the device memory; (h) the same with the finalize fan-out on;
+    (g) an enumeration workload both ways, as the caller resolves the mode
+    and in forced split mode. After each run whose launches the kernel
+    summary reports, the shapes of those launches must be shapes that
+    phase_kernels checked. Returns (launch counts, launch shapes) by run."""
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+
+    # (a) AUTO resolves to the batched pipeline for the deep input's regions
+    prefix, out, launches, wall = _cli_run(tmp, "deep_batched", bam, fa)
+    shapes = _launched_shapes("(a) deep input, batched")
+    stage = out.stage_seconds
+    census = _census(stage)
+    if census["phase_buckets"] + census["phase_enum_buckets"] <= 0:
+        raise AssertionError("the default CLI run did not take the batched "
+                             "pipeline")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"batched main path")
+    want = _payloads(per_region_out.vcf_path[:-len(".vcf")])
+    got = _payloads(prefix)
+    _must_equal("(b) batched vs --no-batched, deep input", got, want)
+    res = {"a_deep_batched": {
+        "regions": out.n_regions, "records": out.n_records,
+        "wall_seconds": wall, "reads_per_second": n_reads / wall,
+        "launches": launches, "launch_shapes": shapes, "census": census,
+        "stage_seconds": stage, "split_regions_kept": out.n_split_kept,
+        "f64_reruns": out.n_f64_reruns},
+        "b_equal_to_per_region": True}
+
+    # (d) the genome workload: 3 contigs, 8 loci, one 300x locus
+    gbam, gfa = os.path.join(tmp, "genome.bam"), os.path.join(tmp, "genome.fa")
+    gparams = make_genome_workload(gbam, gfa)
+    gp, gout, glaunch, gwall = _cli_run(tmp, "genome_batched", gbam, gfa)
+    gp2, gout2, glaunch2, gwall2 = _cli_run(tmp, "genome_per_region", gbam,
+                                            gfa, extra=["--no-batched"])
+    _must_equal("(d) genome workload, batched vs --no-batched",
+                _payloads(gp), _payloads(gp2))
+    if gout.n_records <= 0:
+        raise AssertionError("the genome run wrote no records")
+    res["d_genome"] = {
+        "reads": gparams["n_reads"], "regions": gout.n_regions,
+        "records": gout.n_records, "equal": True,
+        "batched": {"wall_seconds": gwall, "launches": glaunch,
+                    "census": _census(gout.stage_seconds),
+                    "region_phase": gout.stage_seconds.get("region_phase")},
+        "per_region": {"wall_seconds": gwall2, "launches": glaunch2,
+                       "region_phase":
+                           gout2.stage_seconds.get("region_phase")}}
+
+    # (e) the deep input in waves of one region, write overlap on
+    ep, eout, elaunch, ewall = _cli_run(
+        tmp, "deep_waves", bam, fa,
+        env={"LONGCALLR_WAVE_CELLS": "1", "LONGCALLR_WAVE_OVERLAP": "1",
+             "LONGCALLR_RESIDENT_WRITE_OVERLAP": "1"})
+    ecensus = _census(eout.stage_seconds)
+    if ecensus["phase_buckets"] < 3:
+        raise AssertionError(f"(e) expected >= 3 waves, got "
+                             f"{ecensus['phase_buckets']} buckets")
+    if "phased_bam_bg" not in eout.stage_seconds:
+        raise AssertionError("(e) the write overlap did not run")
+    _must_equal("(e) deep input in waves vs one wave", _payloads(ep), got)
+    res["e_deep_waves"] = {"waves": ecensus["phase_buckets"],
+                           "wall_seconds": ewall, "launches": elaunch,
+                           "stage_seconds": eout.stage_seconds,
+                           "equal": True}
+
+    # (f) the deep input as one wave: its four regions share one bucket;
+    # the peak of the device memory over the whole run bounds the bucket's
+    one_wave = {"LONGCALLR_WAVE_CELLS": str(1 << 40)}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fp, fout, flaunch, fwall = _cli_run(tmp, "deep_one_wave", bam, fa,
+                                        env=one_wave)
+    peak = torch.cuda.max_memory_allocated() - held
+    fshapes = _launched_shapes("(f) deep input, one wave")
+    fcensus = _census(fout.stage_seconds)
+    if fcensus["phase_buckets"] != 1:
+        raise AssertionError(f"(f) expected one bucket, got {fcensus}")
+    _must_equal("(f) deep input as one wave vs default waves", _payloads(fp),
+                got)
+    cells = DEEP_BUCKET[0] * DEEP_BUCKET[1] * DEEP_BUCKET[2]
+    res["f_deep_one_wave"] = {"wall_seconds": fwall, "launches": flaunch,
+                              "launch_shapes": fshapes, "census": fcensus,
+                              "stage_seconds": fout.stage_seconds,
+                              "peak_device_bytes": peak,
+                              "bucket_cells": cells,
+                              "peak_bytes_per_cell": peak / cells,
+                              "equal": True}
+
+    # (h) the same wave with the finalize of its four regions on threads
+    hp, hout, hlaunch, hwall = _cli_run(
+        tmp, "deep_fan_out", bam, fa,
+        env=dict(one_wave, LONGCALLR_FINALIZE_MT_CELLS="1"))
+    _must_equal("(h) finalize fan-out vs serial finalize", _payloads(hp), got)
+    res["h_deep_finalize_fan_out"] = {"wall_seconds": hwall,
+                                      "stage_seconds": hout.stage_seconds,
+                                      "equal": True}
+
+    # (g) twelve loci of four SNPs: enumeration buckets, regions x configs
+    ebam, efa = os.path.join(tmp, "enum.bam"), os.path.join(tmp, "enum.fa")
+    eparams = make_genome_workload(
+        ebam, efa, contigs=[(f"chrE{c}", [(4_000, 40, 900)] * 4)
+                            for c in range(3)], seed=20_261_016)
+    np_, nout, nlaunch, nwall = _cli_run(tmp, "enum_batched", ebam, efa)
+    nshapes = _launched_shapes("(g) enumeration workload, batched")
+    np2, nout2, nlaunch2, nwall2 = _cli_run(tmp, "enum_per_region", ebam, efa,
+                                            extra=["--no-batched"])
+    nshapes2 = _launched_shapes("(g) enumeration workload, per-region loop")
+    ncensus = _census(nout.stage_seconds)
+    if ncensus["phase_enum_buckets"] < 1:
+        raise AssertionError(f"(g) no enumeration bucket: {ncensus}")
+    for name in KERNEL_NAMES:
+        if nlaunch[name] <= 0 or nlaunch2[name] <= 0:
+            raise AssertionError(f"(g) kernel {name} was not launched")
+    _must_equal("(g) enumeration workload, batched vs --no-batched",
+                _payloads(np_), _payloads(np2))
+    # once more in forced split mode: no member is recomputed in f64, so
+    # the bytes are those of the kernels' members-per-table form
+    with _forced_split():
+        sp, sout, slaunch, _ = _cli_run(tmp, "enum_batched_split", ebam, efa)
+        sshapes = _launched_shapes("(g) forced split, batched")
+        sp2, sout2, slaunch2, _ = _cli_run(tmp, "enum_per_region_split", ebam,
+                                           efa, extra=["--no-batched"])
+    scensus = _census(sout.stage_seconds)
+    if (scensus["phase_enum_buckets"] < 1 or scensus["phase_safety_recompute"]
+            or sout.n_f64_reruns or sout2.n_f64_reruns):
+        raise AssertionError(f"(g) forced split mode recomputed in f64 or "
+                             f"made no enumeration bucket: {scensus}, "
+                             f"{sout.n_f64_reruns}, {sout2.n_f64_reruns}")
+    for name in KERNEL_NAMES:
+        if slaunch[name] <= 0 or slaunch2[name] <= 0:
+            raise AssertionError(f"(g) forced split: {name} not launched")
+    _must_equal("(g) forced split mode, batched vs --no-batched",
+                _payloads(sp), _payloads(sp2))
+    res["g_enum"] = {
+        "reads": eparams["n_reads"], "regions": nout.n_regions,
+        "records": nout.n_records, "equal": True, "census": ncensus,
+        "batched": {"wall_seconds": nwall, "launches": nlaunch,
+                    "launch_shapes": nshapes,
+                    "region_phase": nout.stage_seconds.get("region_phase")},
+        "per_region": {"wall_seconds": nwall2, "launches": nlaunch2,
+                       "launch_shapes": nshapes2,
+                       "region_phase":
+                           nout2.stage_seconds.get("region_phase")},
+        "forced_split": {"equal": True, "census": scensus,
+                         "launches": slaunch, "launch_shapes": sshapes,
+                         "launches_per_region": slaunch2,
+                         "f64_reruns": sout.n_f64_reruns,
+                         "equal_to_default_mode":
+                             _payloads(sp) == _payloads(np_)}}
+    _emit("batched", card, **res)
+    return {"batched": (launches, shapes),
+            "one_wave": (flaunch, fshapes), "enum": (nlaunch, nshapes),
+            "enum_per_region": (nlaunch2, nshapes2)}
+
+
+def phase_split_vs_f64(card: str, tmp: str, bam: str, fa: str,
+                       per_region_prefix: str):
+    """(c) the deep input with LONGCALLR_F32_KERNELS=0 (f64 on the card),
+    each run in a fresh process: the batched pipeline, and the per-region
+    loop (--no-batched), which is also the path every safety-net recompute
+    takes. Both must write the bytes of the per-region split run, which
+    the batched split run (a) was held to."""
+    env = dict(os.environ, LONGCALLR_F32_KERNELS="0")
+    want = _payloads(per_region_prefix)
+    done = {}
+    for label, extra in (("batched", []), ("per_region", ["--no-batched"])):
+        prefix = os.path.join(tmp, f"deep_f64_{label}")
+        t0 = time.monotonic()
+        res = subprocess.run(
+            [sys.executable, "-m", "longcallr_tpu_torch.cli", "-b", bam,
+             "-f", fa, "-o", prefix, "-p", "hifi-masseq", "--platform",
+             "cuda", *extra],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
+        wall = time.monotonic() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"f64 run ({label}) failed "
+                                 f"({res.returncode}):\n{res.stderr[-3000:]}")
+        _must_equal(f"(c) split vs f64, {label}", _payloads(prefix), want)
+        done[label] = {"byte_equal": True, "wall_seconds": wall,
+                       "stages": [l.strip() for l in res.stdout.splitlines()
+                                  if l.strip().startswith(("stage ",
+                                                           "count "))]}
+    _emit("split_vs_f64", card, **done)
 
 
 def phase_imports(card: str) -> None:
@@ -520,27 +947,45 @@ def main() -> int:
     _emit("build", card, nvcc_seconds=t1 - t0,
           gxx_seconds=time.monotonic() - t1)
     stats = phase_kernels(card, dev)
+    phase_tables(card, dev)
     with tempfile.TemporaryDirectory() as tmp:
         phase_goldens(card, dev, tmp)
-        bam, fa, out, launches = phase_deep(card, tmp)
-        phase_split_vs_f64(card, tmp, bam, fa, out)
+        bam, fa, out, per_region, n_reads = phase_deep(card, tmp)
+        runs = phase_batched(card, tmp, bam, fa, out, n_reads)
+        phase_split_vs_f64(card, tmp, bam, fa,
+                           out.vcf_path[:-len(".vcf")])
     phase_imports(card)
+    runs["per_region"] = per_region
     replaces = {
         "dual_matvec_rows": "longcallr_tpu/phasing/pallas_kernels.py:190",
         "matvec_cols": "longcallr_tpu/phasing/pallas_kernels.py:230",
     }
+    keep = lambda d: {f: d[f] for f in d if f.endswith("ms")
+                      or f.startswith(("bound", "share"))}
+    shape_of = {label: list(_launch_key(shape))
+                for shape, label in TIMED.items()}
     kernels = []
     for n in KERNEL_NAMES:
-        deep, enum = stats[n]["deep"], stats[n]["enum"]
+        # the default batched run of the deep input launches the bucket of
+        # a default wave (two tables); as one wave, the deep bucket of four.
+        # Every shape is (tables, K, I, members per table); a timed shape
+        # names the runs that launched the kernel there.
         k = {"name": n, "route": "cuda",
              "source": "longcallr_tpu_torch/csrc/split_matvec.cu",
-             "replaces": replaces[n], "launches": launches[n],
-             "max_abs_err": stats[n]["max_abs_err"], "shape": list(DEEP[:3])}
-        k.update({f: deep[f] for f in deep if f.endswith("ms")
-                  or f.startswith(("bound", "share"))})
-        k["enum_shape"] = list(ENUM[:3])
-        k["enum"] = {f: enum[f] for f in enum if f.endswith("ms")
-                     or f.startswith(("bound", "share"))}
+             "replaces": replaces[n], "launches": runs["batched"][0][n],
+             "max_abs_err": stats[n]["max_abs_err"],
+             "device_ms_by": DEVICE_TIMER["by"],
+             "shape": shape_of["deep_wave"]}
+        k.update(keep(stats[n]["deep_wave"]))
+        for run, (count, _) in runs.items():
+            if run != "batched":
+                k[f"launches_{run}"] = count[n]
+        k["shapes"] = {
+            label: dict(shape=shape_of[label],
+                        launched_by=[run for run, (_, at) in runs.items()
+                                     if shape_of[label] in at[n]],
+                        **keep(stats[n][label]))
+            for label in TIMED.values()}
         kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(card)

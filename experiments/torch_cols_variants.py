@@ -122,7 +122,7 @@ def main() -> int:
             run(f"kernel tx={1 << tx_log2} kc={kc} "
                 f"blocks={(I // (4 << tx_log2)) * (K // kc)}", "cols_kernel",
                 lambda t=tx_log2, k=kc: lib.split_matvec_cols(
-                    hi.data_ptr(), lo.data_ptr(), 0, s.data_ptr(),
+                    hi.data_ptr(), lo.data_ptr(), 1, s.data_ptr(),
                     partial.data_ptr(), tickets.data_ptr(), out.data_ptr(),
                     1, K, I, 4, t, k, 0, stream))
     for which, name in ((1, "cols_cpasync"), (2, "cols_noskip")):
@@ -149,7 +149,7 @@ def main() -> int:
                 partial.data_ptr(), tickets.data_ptr(), out.data_ptr(),
                 1, K, I, 4, 128, stream)) if which else
             (lambda: lib.split_matvec_cols(
-                hi.data_ptr(), lo.data_ptr(), 0, s0.data_ptr(),
+                hi.data_ptr(), lo.data_ptr(), 1, s0.data_ptr(),
                 partial.data_ptr(), tickets.data_ptr(), out.data_ptr(),
                 1, K, I, 4, 4, 128, 0, stream)), checked=False)
     run("wrapper (cols_plan)", "cols_kernel",

@@ -1,6 +1,8 @@
 """Command-line interface of the torch port: the flags, defaults and help
-text of the JAX package's CLI, run on the per-region path of
-``pipeline/caller.py``. ``build_parser`` and ``config_from_args`` are copied
+text of the JAX package's CLI, run on the resident paths of
+``pipeline/caller.py`` (batched for more than one region unless
+``--no-batched``, per region otherwise). ``build_parser`` and
+``config_from_args`` are copied
 from ``longcallr_tpu/cli.py`` (only the program name differs), so both
 packages parse one command line alike.
 
@@ -9,9 +11,9 @@ packages parse one command line alike.
 
 ``--platform`` defaults to ``cuda`` and raises when no CUDA device is
 available. ``--get-blocks`` lists the regions and exits (host only).
-Flags of paths this slice does not port (``--batched``, ``--stream``,
-``--resume``, the pod flags, ``--profile-dir``) raise
-``NotImplementedError`` naming their ROADMAP item.
+Flags of paths that are not ported yet (``--stream``, ``--resume``, the pod
+flags, ``--profile-dir``) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -153,8 +155,6 @@ def config_from_args(args) -> CallerConfig:
 
 
 def _unported(args) -> Optional[str]:
-    if args.batched:
-        return f"--batched ({_PORT_ITEM}: batched bucket programs)"
     if args.stream:
         return f"--stream ({_PORT_ITEM}: --stream and --resume)"
     if args.resume:
@@ -207,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     out = LAST_RUN = run(args.bam_path, args.ref_path, args.output, cfg,
               input_vcf=args.input_vcf, input_region=args.region,
               contigs=args.contigs, anno_path=args.annotation,
-              device=device)
+              batched=args.batched, device=device)
     print(f"wrote {out.n_records} records to {out.vcf_path} "
           f"({out.n_phased_sites} phased sites, {out.n_candidates} candidates, "
           f"{out.n_assigned_reads}/{out.n_fragments} reads haplotagged) "
@@ -219,8 +219,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"wrote index to {build_bai(out.phased_bam_path)}")
     print(f"split-mode regions kept: {out.n_split_kept}, "
           f"recomputed in f64: {out.n_f64_reruns}")
+    from .pipeline.engine import STAGE_COUNTS
     for k, v in out.stage_seconds.items():
-        print(f"  stage {k}: {v:.2f}s")
+        print(f"  count {k}: {int(v)}" if k in STAGE_COUNTS
+              else f"  stage {k}: {v:.2f}s")
     return 0
 
 

@@ -8,8 +8,10 @@
 // exact two-term f32 split of its f64 values ([K reads, I SNPs], row-major).
 //   rows: out[b,k,c] = Σ_i (hi+lo)[b,k,i] · x[b,i,c]   for c ∈ {0,1}   (Dp·[u v])
 //   cols: out[b,i]   = Σ_k s[b,k] · (hi+lo)[b,k,i]                     (Dpᵀ·σ)
-// A batch stride of 0 on hi/lo lets a batch of state vectors share one Dp (the
-// enumeration path's configs).
+// The batch is B members (state vectors) over B/g tables: member b reads table
+// b / g ("members per table"). g = 1 is one table per member (a bucket of
+// regions), g = B one table for all (one region's enumeration configs), and
+// 1 < g < B a bucket of regions with g configs each.
 //
 // The TPU kernel accumulated in double-f32 (TwoSum) because its vector units have
 // no f64. This card has native FP64, so each element is widened to f64 as
@@ -57,7 +59,7 @@ constexpr int kColsMaxChunk = 1024;  // rows of σ staged per block
 template <int L>
 __global__ void __launch_bounds__(kRowsThreads)
 rows_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
-            int64_t hl_bstride, const double* __restrict__ x,
+            int g, const double* __restrict__ x,
             double* __restrict__ out, int K, int I) {
   const int lane = threadIdx.x & (L - 1);
   const int k = blockIdx.x * (kRowsThreads / L) + threadIdx.x / L;
@@ -66,7 +68,7 @@ rows_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
   const bool live = k < K;
   double acc0 = 0.0, acc1 = 0.0;
   if (live) {
-    const size_t row = (size_t)b * hl_bstride + (size_t)k * I;
+    const size_t row = ((size_t)(b / g) * K + k) * I;
     const float* h = hi + row;
     const float* l = lo + row;
     const double2* xb = reinterpret_cast<const double2*>(x + (size_t)b * I * 2);
@@ -204,7 +206,7 @@ __device__ void cols_finish(const ColsBlock<VEC>& t, double (&acc)[VEC],
 template <int VEC>
 __global__ void __launch_bounds__(kColsThreads)
 cols_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
-            int64_t hl_bstride, const double* __restrict__ s,
+            int g, const double* __restrict__ s,
             double* partial, unsigned int* tickets, double* __restrict__ out,
             int K, int I, int kc, int tx_log2) {
   __shared__ double s_chunk[kColsMaxChunk];
@@ -223,7 +225,7 @@ cols_kernel(const float* __restrict__ hi, const float* __restrict__ lo,
 #pragma unroll
   for (int j = 0; j < VEC; ++j) acc[j] = 0.0;
   if (t.live) {
-    const size_t base = (size_t)b * hl_bstride + (size_t)k0 * I + t.col;
+    const size_t base = ((size_t)(b / g) * K + k0) * I + t.col;
     const float* h = hi + base;
     const float* l = lo + base;
     for (int r0 = t.ly * kColsUnroll; r0 < n; r0 += t.ty_n * kColsUnroll) {
@@ -269,50 +271,49 @@ struct OnDevice {
 
 extern "C" {
 
-// hi, lo: f32, element (b,k,i) at b*hl_bstride + k*I + i; x: f64 [B,I,2]
-// contiguous; out: f64 [B,K,2]. lanes: lanes per row, a power of two in 4..32.
-int split_dual_matvec_rows(const float* hi, const float* lo,
-                           long long hl_bstride, const double* x, double* out,
-                           int B, int K, int I, int lanes, int device,
-                           void* stream) {
+// hi, lo: f32 [ceil(B/g),K,I] contiguous, member b on table b / g (g: members
+// per table, >= 1); x: f64 [B,I,2] contiguous; out: f64 [B,K,2]. lanes: lanes
+// per row, a power of two in 4..32.
+int split_dual_matvec_rows(const float* hi, const float* lo, int g,
+                           const double* x, double* out, int B, int K, int I,
+                           int lanes, int device, void* stream) {
+  if (g < 1) return (int)cudaErrorInvalidValue;
   OnDevice on(device);
   const int rows_per_block = kRowsThreads / lanes;
   dim3 grid((K + rows_per_block - 1) / rows_per_block, B);
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t bs = (int64_t)hl_bstride;
   switch (lanes) {
-    case 4: rows_kernel<4><<<grid, kRowsThreads, 0, st>>>(hi, lo, bs, x, out, K, I); break;
-    case 8: rows_kernel<8><<<grid, kRowsThreads, 0, st>>>(hi, lo, bs, x, out, K, I); break;
-    case 16: rows_kernel<16><<<grid, kRowsThreads, 0, st>>>(hi, lo, bs, x, out, K, I); break;
-    case 32: rows_kernel<32><<<grid, kRowsThreads, 0, st>>>(hi, lo, bs, x, out, K, I); break;
+    case 4: rows_kernel<4><<<grid, kRowsThreads, 0, st>>>(hi, lo, g, x, out, K, I); break;
+    case 8: rows_kernel<8><<<grid, kRowsThreads, 0, st>>>(hi, lo, g, x, out, K, I); break;
+    case 16: rows_kernel<16><<<grid, kRowsThreads, 0, st>>>(hi, lo, g, x, out, K, I); break;
+    case 32: rows_kernel<32><<<grid, kRowsThreads, 0, st>>>(hi, lo, g, x, out, K, I); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
-// s: f64 [B,K] contiguous; out: f64 [B,I]. vec: columns per thread, 4 (needs
-// I % 4 == 0, hl_bstride % 4 == 0 and 16-byte aligned hi, lo) or 1; the block
+// hi, lo and g as above; s: f64 [B,K] contiguous; out: f64 [B,I]. vec: columns
+// per thread, 4 (needs I % 4 == 0 and 16-byte aligned hi, lo) or 1; the block
 // covers (1 << tx_log2) * vec columns; kc: rows per block, <= 1024. With more
 // than one K chunk, partial is f64 scratch [B, ceil(K/kc), I] and tickets is
 // zeroed unsigned scratch [B, column blocks] that the kernel leaves zeroed.
-int split_matvec_cols(const float* hi, const float* lo, long long hl_bstride,
+int split_matvec_cols(const float* hi, const float* lo, int g,
                       const double* s, double* partial, unsigned int* tickets,
                       double* out, int B, int K, int I, int vec, int tx_log2,
                       int kc, int device, void* stream) {
-  if (kc < 1 || kc > kColsMaxChunk || tx_log2 < 0 || tx_log2 > 5)
+  if (g < 1 || kc < 1 || kc > kColsMaxChunk || tx_log2 < 0 || tx_log2 > 5)
     return (int)cudaErrorInvalidValue;
   OnDevice on(device);
   const int width = (1 << tx_log2) * vec;
   dim3 grid((I + width - 1) / width, (K + kc - 1) / kc, B);
   cudaStream_t st = (cudaStream_t)stream;
-  const int64_t bs = (int64_t)hl_bstride;
   if (vec == 4) {
-    if (I % 4 || bs % 4 || ((uintptr_t)hi | (uintptr_t)lo) % 16)
+    if (I % 4 || ((uintptr_t)hi | (uintptr_t)lo) % 16)
       return (int)cudaErrorInvalidValue;
-    cols_kernel<4><<<grid, kColsThreads, 0, st>>>(hi, lo, bs, s, partial, tickets,
+    cols_kernel<4><<<grid, kColsThreads, 0, st>>>(hi, lo, g, s, partial, tickets,
                                                   out, K, I, kc, tx_log2);
   } else if (vec == 1) {
-    cols_kernel<1><<<grid, kColsThreads, 0, st>>>(hi, lo, bs, s, partial, tickets,
+    cols_kernel<1><<<grid, kColsThreads, 0, st>>>(hi, lo, g, s, partial, tickets,
                                                   out, K, I, kc, tx_log2);
   } else {
     return (int)cudaErrorInvalidValue;

@@ -16,14 +16,16 @@ imports jax.
 
 from __future__ import annotations
 
+import os as _os
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..config import CallerConfig
 from ..tiles.pileup import PileupTensors
+from ..utils.device import resolve_device
 
 # tables and thresholds: the same numpy values as the JAX package
 # (binomial two-tailed test for n <= 30 from scipy, SOR threshold in f32)
@@ -375,17 +377,70 @@ def _to_device(cols: dict, device: torch.device) -> dict:
             for k, v in cols.items()}
 
 
+def _device(device: Optional[torch.device]) -> torch.device:
+    return resolve_device() if device is None else torch.device(device)
+
+
 def select_candidates(pileup: PileupTensors, cfg: CallerConfig,
                       exon_mask: Optional[np.ndarray] = None,
-                      device: torch.device = torch.device("cpu")
+                      device: Optional[torch.device] = None
                       ) -> CandidateSet:
     """Full candidate selection for one region: pad → kernel on ``device``
-    → host gather → dense-window passes → CandidateSet."""
+    (``None``: the CUDA device, and it raises where there is none) → host
+    gather → dense-window passes → CandidateSet."""
+    device = _device(device)
     P = pileup.length
     cols = _pad_cols(_kernel_cols(pileup, exon_mask), _round_up(P))
     out = candidate_kernel(_to_device(cols, device), cfg)
     out = {k: v[:P].cpu().numpy() for k, v in out.items()}
     return _candidates_from_out(pileup, out, cfg)
+
+
+# column budget of one batched kernel call (bounds the ~30 [P]-sized f64
+# intermediates the kernel materialises); the JAX package's knob and default
+CAND_BATCH_COLS = int(_os.environ.get("LONGCALLR_CAND_BATCH_COLS",
+                                      str(1 << 20)))
+
+
+def select_candidates_batched(pileups: List[PileupTensors],
+                              cfg: CallerConfig,
+                              exon_masks: Optional[List[Optional[np.ndarray]]] = None,
+                              device: Optional[torch.device] = None
+                              ) -> List[CandidateSet]:
+    """Candidate selection for many regions in few kernel calls: the kernel
+    is purely per-column, so the regions' columns concatenate along the
+    position axis (padding columns have cov == 0 → category 0). One
+    ``candidate_kernel`` call per ≤ CAND_BATCH_COLS columns on ``device``;
+    the host gather and the dense-window passes stay per region."""
+    device = _device(device)
+    if exon_masks is None:
+        exon_masks = [None] * len(pileups)
+    results: List[CandidateSet] = []
+    i = 0
+    n = len(pileups)
+    while i < n:
+        j = i + 1
+        tot = pileups[i].length
+        while j < n and tot + pileups[j].length <= CAND_BATCH_COLS:
+            tot += pileups[j].length
+            j += 1
+        group = pileups[i:j]
+        cols_list = [_kernel_cols(pl, em)
+                     for pl, em in zip(group, exon_masks[i:j])]
+        lens = [len(c["ref_idx"]) for c in cols_list]
+        Ppad = _round_up(max(1, int(np.sum(lens))))
+        cols = _pad_cols({k: np.concatenate([c[k] for c in cols_list])
+                          for k in cols_list[0]}, Ppad)
+        out = {k: v.cpu().numpy()
+               for k, v in candidate_kernel(_to_device(cols, device),
+                                            cfg).items()}
+        off = 0
+        for pl, P in zip(group, lens):
+            sl = {k: v[off:off + P] for k, v in out.items()}
+            results.append(_candidates_from_out(pl, sl, cfg))
+            off += P
+        i = j
+    return results
 
 
 def _candidates_from_out(pileup: PileupTensors, out: dict,

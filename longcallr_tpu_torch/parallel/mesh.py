@@ -1,0 +1,313 @@
+"""Bucket programs of the phasing engine: a batch of same-shape regions
+through the same launches (torch, one device).
+
+Port of the ``batched_*`` programs of ``longcallr_tpu/parallel/mesh.py``.
+There a program is a jitted ``vmap`` over the regions of a bucket, sharded
+over a device mesh; here it is a plain function whose tensors carry the
+region axis first and run on the device they lie on: every elementwise
+step and both hand-kernel matvecs (``cuda_kernels``, one table per member)
+take the whole bucket in one launch, and an ascent is the masked loop of
+``optimize._ascend`` — each member freezes when its own continue flag
+drops, the loop ends when the last one has, with one host sync per trip
+for the whole bucket. A member's result never depends on its bucket-mates:
+its tables, its random draws (``keys``, one threefry key per region) and
+its round count are its own.
+
+``split`` selects the mode as everywhere in the port: the f32-split tables
+through the hand kernels (on for CUDA tensors) or f64 (on the CPU);
+``None`` resolves it from the bucket's device (``optimize.split_mode``).
+
+The mesh-sharded forms (``batched_phase_step``, ``read_sharded_snp_sums``,
+``sharded_cross_optimize``, ``make_mesh``) belong to the multi-device
+slice and are not ported here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..phasing import kernels_fast as KF
+from ..phasing import optimize as O
+from ..phasing import rng as R
+from ..phasing.kernels import (TIE_TOL, CellTables, CompactCells, expand_cells,
+                               f64, overall_probability)
+from ..phasing.optimize import PhaseState
+
+
+class BatchedRegions(NamedTuple):
+    """A bucket of B same-shape padded regions, in compact transfer form
+    (2 bytes/cell; the emission tables expand on the device inside each
+    program)."""
+
+    p: torch.Tensor          # [B,K,I] int8 in {-1,0,+1}
+    q: torch.Tensor          # [B,K,I] uint8 capped baseq
+    read_base: torch.Tensor  # [B,K] bool
+    site_mask: torch.Tensor  # [B,I] bool
+    conserved: torch.Tensor  # [B,I] bool
+
+    @classmethod
+    def from_numpy(cls, p, q, read_base, site_mask, conserved,
+                   device: torch.device) -> "BatchedRegions":
+        on = lambda a, dt: torch.as_tensor(np.array(a, dt), device=device)
+        return cls(on(p, np.int8), on(q, np.uint8), on(read_base, bool),
+                   on(site_mask, bool), on(conserved, bool))
+
+    @property
+    def cells(self) -> CompactCells:
+        return CompactCells(self.p, self.q)
+
+
+def _split(batch: BatchedRegions, split: Optional[bool]) -> bool:
+    return O.split_mode(batch.p.device) if split is None else bool(split)
+
+
+def _tables(batch: BatchedRegions, sigma, split: bool):
+    return O._fast_tables_for(batch.cells, batch.read_base, sigma,
+                              batch.site_mask, split)
+
+
+def batched_cross_optimize(batch: BatchedRegions, sigma, delta, eta,
+                           keep_conserved: bool = True,
+                           with_genotype: bool = False,
+                           split: Optional[bool] = None):
+    """Full ≤21-iteration coordinate ascent over a region bucket.
+    Returns (sigma, delta, eta, prob[B])."""
+    st, prob = O.cross_optimize(
+        batch.cells, PhaseState(sigma, delta, eta), batch.read_base,
+        batch.site_mask, batch.conserved, with_genotype, keep_conserved,
+        _split(batch, split))
+    return st.sigma, st.delta, st.eta, prob
+
+
+def _round_counts(n_rounds) -> np.ndarray:
+    if isinstance(n_rounds, torch.Tensor):
+        n_rounds = n_rounds.cpu().numpy()
+    return np.asarray(n_rounds, np.int64).reshape(-1)
+
+
+def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
+                               best_eta, best_prob, n_rounds,
+                               keys: Sequence[np.ndarray], with_iters: bool,
+                               split: bool, fts=None):
+    """Shared body of batched_perturbation_phase and its _stats variant.
+    ``fts``: prebuilt tables (batched_phase_fused shares one build across
+    ascent, flip and schedule — valid because the active-read mask they
+    bake in is σ-sign-invariant, so the values are those of a rebuild)."""
+    if with_iters and not O.USE_FAST_KERNELS:
+        raise RuntimeError("iteration accounting needs the fast-kernel ascent")
+    B, K = best_sigma.shape
+    I = best_delta.shape[1]
+    dev = best_sigma.device
+    rounds = _round_counts(n_rounds)
+    if rounds.shape[0] != B or len(keys) != B:
+        raise ValueError(f"{B} regions need {B} round counts and keys, got "
+                         f"{rounds.shape[0]} and {len(keys)}")
+    max_rounds = int(rounds.max()) if B else 0
+    rb, sm, cons = batch.read_base, batch.site_mask, batch.conserved
+
+    # the ascent tables are built once, outside the round loop: the
+    # active-read set is schedule-invariant (σ only flips sign)
+    if O.USE_FAST_KERNELS:
+        if fts is None:
+            fts = _tables(batch, best_sigma, split)
+        ascend = lambda st0: O._cross_optimize_fast_loop_it(
+            None, st0, rb, sm, cons, False, False, split, ft=fts)
+    else:
+        ct_full = expand_cells(batch.cells)
+        ascend = lambda st0: O._cross_optimize_loop(
+            ct_full, st0, rb, sm, cons, False, False) + (0,)
+
+    # every round's randoms of every region, drawn up front from the
+    # region's own key at the padded sizes: (t, b) draws are those of
+    # fold_in(keys[b], t) → split → uniform, whatever the bucket holds
+    R_max = I // 4 + 1
+    if max_rounds > R_max:
+        raise ValueError(f"{max_rounds} rounds exceed the {R_max} drawn for "
+                         f"I = {I}")
+    draws = [R.predraw_rounds(np.asarray(k), K, I) for k in keys]
+    rg_all = torch.as_tensor(np.stack([d[0][:max_rounds] for d in draws]),
+                             device=dev)                   # [B,R,I]
+    fl_all = torch.as_tensor(np.stack([d[1][:max_rounds] for d in draws]),
+                             device=dev)                   # [B,R,K]
+    rounds_d = torch.as_tensor(rounds, device=dev)
+
+    b_st = PhaseState(best_sigma, best_delta, best_eta)
+    b_p = torch.as_tensor(best_prob, dtype=f64, device=dev)
+    iters = 0
+
+    def keep(b_st, b_p, st_new, prob_new, active):
+        better = active & (prob_new > b_p + TIE_TOL)
+        return (O._select(better, st_new, b_st),
+                torch.where(better, prob_new, b_p))
+
+    for t in range(max_rounds):
+        active = rounds_d > t          # a member past its rounds keeps its state
+        lowv = 1.0 if t % 2 == 1 else -1.0
+        rg = rg_all[:, t]
+        delta = torch.where(rg < 0.1, lowv,
+                            torch.where(rg >= 0.9, -lowv, b_st.delta))
+        st1, prob1, it1 = ascend(b_st._replace(delta=delta))
+        b_st, b_p = keep(b_st, b_p, st1, prob1, active)
+        fl = (fl_all[:, t] < 0.1) & rb & (b_st.sigma != 0)
+        sigma = torch.where(fl, -b_st.sigma, b_st.sigma)
+        st2, prob2, it2 = ascend(b_st._replace(sigma=sigma))
+        b_st, b_p = keep(b_st, b_p, st2, prob2, active)
+        # every trip of a bucket's ascent moves all B members' tables:
+        # the trips of the slowest member are the unit of the accounting
+        iters += it1 + it2
+    out = (b_st.sigma, b_st.delta, b_st.eta, b_p)
+    return out + (iters,) if with_iters else out
+
+
+def batched_perturbation_phase(batch: BatchedRegions, best_sigma, best_delta,
+                               best_eta, best_prob, n_rounds, keys,
+                               split: Optional[bool] = None):
+    """The perturbation schedule (phase.rs:1198-1233) over a region bucket:
+    a loop to max(n_rounds) in which a member with t >= n_rounds[b] keeps
+    its state.
+
+    ``keys`` holds one threefry key (``rng.prng_key``) per region, so each
+    region's perturbation stream depends only on its own seed — never on
+    which other regions share its bucket or wave. Returns (sigma, delta,
+    eta, prob[B]) of the per-region best states."""
+    return _batched_perturbation_impl(batch, best_sigma, best_delta, best_eta,
+                                      best_prob, n_rounds, keys, False,
+                                      _split(batch, split))
+
+
+def batched_perturbation_phase_stats(batch: BatchedRegions, best_sigma,
+                                     best_delta, best_eta, best_prob,
+                                     n_rounds, keys,
+                                     split: Optional[bool] = None):
+    """batched_perturbation_phase plus the count of ascent trips: returns
+    (sigma, delta, eta, prob[B], iters) where ``iters`` sums, over the
+    ascent calls, the trips of the member that took most — each such trip
+    streams every region's Dp twice (rows and cols matvec). States and
+    probs are those of batched_perturbation_phase. Fast-kernel path only."""
+    return _batched_perturbation_impl(batch, best_sigma, best_delta, best_eta,
+                                      best_prob, n_rounds, keys, True,
+                                      _split(batch, split))
+
+
+def batched_overall_probability(batch: BatchedRegions, sigma, delta, eta,
+                                split: Optional[bool] = None):
+    """cal_overall_probability per region of a bucket → prob[B]. In split
+    mode via the split tables (the scale of the split-mode ascent
+    objectives it is compared against); in f64 the exact spec kernel."""
+    if O.USE_FAST_KERNELS and _split(batch, split):
+        ft = _tables(batch, sigma, True)
+        return KF.fast_overall_probability32(ft, sigma, delta, eta)
+    rm = batch.read_base & (sigma != 0)
+    return overall_probability(expand_cells(batch.cells), sigma, delta, eta,
+                               rm, batch.site_mask)
+
+
+def _flip_and_score(fts, batch: BatchedRegions, sigma, delta, eta, block_id):
+    sg2, dl2, margin = KF.fast_block_flip32(fts, batch.p, sigma, delta, eta,
+                                            batch.site_mask, block_id)
+    # the flip never zeroes σ, so the tables' active-read set is still exact
+    prob2 = KF.fast_overall_probability32(fts, sg2, dl2, eta)
+    return sg2, dl2, prob2, margin
+
+
+def _need_split(batch: BatchedRegions, split: Optional[bool], what: str):
+    if not (O.USE_FAST_KERNELS and _split(batch, split)):
+        raise RuntimeError(f"{what} requires the f32 split tables")
+
+
+def batched_block_flip(batch: BatchedRegions, sigma, delta, eta, block_id,
+                       split: Optional[bool] = None):
+    """Device block-flip pass (phase.rs:1298-1394) over a region bucket.
+
+    Split mode only (the split tables are the operands): callers run
+    ``optimize.block_flip_pass`` on the host otherwise. ``block_id`` is
+    [B,I] int (−1 = unblocked or padded column). Returns (new_sigma,
+    new_delta, prob2[B], margin[B]): ``prob2`` scores the flipped state
+    with the expression and the tables of batched_overall_probability's
+    split branch; a region with margin < F32_BF_TOL had a near-tie block
+    decision and must be recomputed with the exact host pass."""
+    _need_split(batch, split, "the device block flip")
+    fts = _tables(batch, sigma, True)
+    return _flip_and_score(fts, batch, sigma, delta, eta, block_id)
+
+
+def batched_phase_fused(batch: BatchedRegions, sigma0, delta0, eta0,
+                        block_id, n_rounds, keys,
+                        split: Optional[bool] = None):
+    """The bucket's entire iterative phase — first ascent (keep_conserved,
+    phase.rs:1132) → block flip and flip score → keep-best → perturbation
+    schedule — over one split-table build (split mode only).
+
+    Every stage is the computation the staged chain runs
+    (batched_cross_optimize / batched_block_flip / keep-best /
+    batched_perturbation_phase), composed: outputs are bit-identical, so
+    the caller may choose fused or staged per bucket. Returns (sigma,
+    delta, eta, prob[B], margin[B]); when any region's margin is inside the
+    f32 envelope the caller discards the result and reruns the staged
+    path, whose host-exact block flip defines the semantics."""
+    _need_split(batch, split, "the fused phase")
+    # one build serves all three stages: the active-read mask it bakes in
+    # (read_base & σ≠0) is σ-sign-invariant across the whole sequence
+    fts = _tables(batch, sigma0, True)
+    st1, prob1, _ = O._cross_optimize_fast_loop_it(
+        None, PhaseState(sigma0, delta0, eta0), batch.read_base,
+        batch.site_mask, batch.conserved, False, True, True, ft=fts)
+    sg2, dl2, prob2, margins = _flip_and_score(fts, batch, st1.sigma,
+                                               st1.delta, st1.eta, block_id)
+    # keep-best, tie-quantized like the staged chain's host comparison:
+    # when no block flips, prob2 re-scores the same state, and an
+    # unquantized > would resolve by summation-order rounding
+    better = prob2 > prob1 + TIE_TOL
+    best_sg = torch.where(better[:, None], sg2, st1.sigma)
+    best_dl = torch.where(better[:, None], dl2, st1.delta)
+    best_pr = torch.where(better, prob2, prob1)
+    sgf, dlf, etf, prf = _batched_perturbation_impl(
+        batch, best_sg, best_dl, st1.eta, best_pr, n_rounds, keys, False,
+        True, fts=fts)
+    return sgf, dlf, etf, prf, margins
+
+
+def enum_tables(batch: BatchedRegions, split: Optional[bool] = None):
+    """Ascent tables of an enumeration bucket, one per region, for configs
+    whose active-read set is the region's ``read_base`` (every config's σ
+    is non-zero on exactly those reads). None on the spec path."""
+    if not O.USE_FAST_KERNELS:
+        return None
+    ones = batch.read_base.to(f64)
+    return _tables(batch, ones, _split(batch, split))
+
+
+def batched_enum_cross_optimize(batch: BatchedRegions, sigma0, configs, eta0,
+                                split: Optional[bool] = None, fts=None):
+    """Enumeration path over a bucket: regions axis × configs axis.
+
+    sigma0 [B,C,K] per-region per-config random inits; configs [C,I] shared
+    (regions of a bucket have the same logical candidate count); eta0
+    [B,I]. Each region's configs share that region's tables (``fts``, from
+    ``enum_tables``; built here when None) — the hand kernels read table
+    b for the C members of region b. Returns (sigma, delta, eta)[B,C,...]
+    and prob[B,C]."""
+    split = _split(batch, split)
+    B, C, K = sigma0.shape
+    I = configs.shape[-1]
+    rb = batch.read_base[:, None, :]
+    sm = batch.site_mask[:, None, :]
+    st0 = PhaseState(sigma0, configs.to(f64).expand(B, C, I),
+                     eta0[:, None, :].expand(B, C, I))
+    cons = torch.zeros_like(sm)
+    if O.USE_FAST_KERNELS:
+        if fts is None:
+            # checks that each region's configs share one active-read set
+            fts = O._fast_tables_for(batch.cells, batch.read_base[:, None],
+                                     sigma0, batch.site_mask, split)
+        st, prob = O._cross_optimize_fast_loop(
+            None, st0, rb, sm, cons, True, False, split,
+            ft=KF.for_members(fts))
+    else:
+        ct = expand_cells(batch.cells)
+        ct = CellTables(*(a[:, None] for a in ct))         # [B,1,K,I]
+        st, prob = O._cross_optimize_loop(ct, st0, rb, sm, cons, True, False)
+    return st.sigma, st.delta, st.eta, prob

@@ -9,20 +9,21 @@ region's emission matrix stored as an exact two-term f32 split ``hi + lo``
 * ``matvec_cols(hi, lo, s)``: ``Dpᵀ·s`` — the (δ, η) half-step and the
   block-flip pass.
 
-Both take an optional leading batch axis on the operand (and on hi/lo, or
-hi/lo shared by the whole batch — the enumeration path's configs share one
-Dp). On a CUDA tensor the wrapper launches the hand-written kernel of
+Both take a batch of members (state vectors) over a batch of tables:
+hi/lo [K,I] shared by every member (one region's enumeration configs share
+one Dp), hi/lo [B,K,I] with one member per table (a bucket of regions), or
+hi/lo [B,K,I] with an operand [B,C,...] (a bucket of regions with C
+configs each). The kernels are told the members per table and member m
+reads table m // g; no table is expanded. On a CUDA tensor the wrapper launches the hand-written kernel of
 ``csrc/split_matvec.cu`` (built at first use, see ``_build.py``) or raises;
 on a CPU tensor it takes the plain version, ``(hi.double() + lo.double())``
 contracted in f64. The kernel accumulates in f64, so it agrees with the
 plain version up to summation order.
 
-A call costs little beside its kernel: operands that are already what the
-kernel takes (contiguous, [K,I] tables or a batch of them) go straight to
-the launch — dtype, shape, device and contiguity are still checked, but
-nothing is copied, no device context is entered (the C entry point selects
-the device) and the only allocation is the result. Anything else (a
-broadcast batch, a strided view) is first made contiguous.
+A call costs little beside its kernel: dtype, shape, device and contiguity
+are checked, but contiguous operands are not copied, no device context is
+entered (the C entry point selects the device) and the only allocation is
+the result. A strided or broadcast operand is first made contiguous.
 
 ``matvec_cols`` needs scratch on the card when K is cut into chunks: the
 chunks' partial sums and one ticket per column block. It is kept per
@@ -32,18 +33,22 @@ stream share a workspace and their kernels serialise; threads on different
 streams get different workspaces.
 
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls are not
-counted), so a run can show that its main path went through the kernels.
+counted), so a run can show that its main path went through the kernels;
+``LAUNCH_SHAPES`` holds the (tables, K, I, members per table) of those
+launches, so the run can also show at which shapes.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Set, Tuple
 
 import torch
 
 LAUNCHES = {"dual_matvec_rows": 0, "matvec_cols": 0}
+LAUNCH_SHAPES: Dict[str, Set[Tuple[int, int, int, int]]] = {
+    "dual_matvec_rows": set(), "matvec_cols": set()}
 _count_lock = threading.Lock()
 
 # the cols kernel's block: 256 threads, 4 rows in flight per thread, at most
@@ -68,88 +73,114 @@ def reset_launches() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            LAUNCH_SHAPES[k].clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, hi: torch.Tensor, g: int) -> None:
+    """One launch of ``name`` on tables ``hi`` with g members per table."""
+    shape = (hi.shape[0] if hi.dim() == 3 else 1, hi.shape[-2], hi.shape[-1],
+             g)
     with _count_lock:
         LAUNCHES[name] += 1
+        LAUNCH_SHAPES[name].add(shape)
 
 
-def dual_matvec_rows_plain(hi, lo, x) -> torch.Tensor:
-    """Plain PyTorch version: (hi + lo) in f64 times x → [..., K, 2]."""
-    return torch.matmul(hi.double() + lo.double(), x.double())
-
-
-def matvec_cols_plain(hi, lo, s) -> torch.Tensor:
-    """Plain PyTorch version: sᵀ·(hi + lo) in f64 → [..., I]."""
+def _widen(hi, lo, lead: int) -> torch.Tensor:
+    """(hi + lo) in f64, shaped to broadcast against an operand with
+    ``lead`` leading axes: a batch of tables under a [B, C, ...] operand
+    gets an axis for the members of each table."""
     dp = hi.double() + lo.double()
-    return torch.matmul(s.double().unsqueeze(-2), dp).squeeze(-2)
+    return dp[:, None] if (dp.dim() == 3 and lead == 2) else dp
 
 
-def _usual(hi, lo, op, vec_dims: int):
-    """The usual case, checked with as little host work as it takes: [K,I]
-    float32 tables and a float64 operand ([I,2] / [K], or a batch of them),
-    all contiguous and on one device, are what the kernels take as they
-    are. Returns (B, batched-output?) then, and None for anything else —
-    which ``_operands`` then brings into shape or refuses."""
+def _grouped(op, tables: int, members_per_table, vec_dims: int):
+    """A flat [M, ...] operand as [tables, members per table, ...]."""
+    if members_per_table is None:
+        return op
+    return op.reshape(tables, int(members_per_table), *op.shape[-vec_dims:])
+
+
+def dual_matvec_rows_plain(hi, lo, x, members_per_table=None) -> torch.Tensor:
+    """Plain PyTorch version: (hi + lo) in f64 times x → [..., K, 2]. Takes
+    the shapes the wrapper takes."""
+    xg = _grouped(x.double(), hi.shape[0] if hi.dim() == 3 else 1,
+                  members_per_table, 2)
+    out = torch.matmul(_widen(hi, lo, xg.dim() - 2), xg)
+    return out if members_per_table is None else out.reshape(
+        x.shape[0], hi.shape[-2], 2)
+
+
+def matvec_cols_plain(hi, lo, s, members_per_table=None) -> torch.Tensor:
+    """Plain PyTorch version: sᵀ·(hi + lo) in f64 → [..., I]. Takes the
+    shapes the wrapper takes."""
+    sg = _grouped(s.double(), hi.shape[0] if hi.dim() == 3 else 1,
+                  members_per_table, 1)
+    out = torch.matmul(sg.unsqueeze(-2),
+                       _widen(hi, lo, sg.dim() - 1)).squeeze(-2)
+    return out if members_per_table is None else out.reshape(
+        s.shape[0], hi.shape[-1])
+
+
+def _operands(hi, lo, op, vec_dims: int, members_per_table=None):
+    """Check hi/lo and the operand (``vec_dims`` trailing dims: [I,2] or
+    [K]) and bring them to what the kernels take: M members over a batch
+    of tables, member m on table m // g. Returns (M, g, the operand as
+    contiguous memory, the result's leading shape).
+
+    Accepted: tables [K,I] with an operand that has no or one leading axis
+    (all members share the one table); tables [B,K,I] with an operand that
+    has none (one operand for every table), [B, ...] (a table per member),
+    or [B, C, ...] (C members per table). ``members_per_table`` names g for
+    a flat operand [B·g, ...] over tables [B,K,I]."""
     hs, ops = hi.shape, op.shape
-    lead = len(ops) - vec_dims
-    if len(hs) != 2 or lo.shape != hs or lead not in (0, 1):
-        return None
-    if vec_dims == 1:
-        if ops[-1] != hs[0]:
-            return None
-    elif ops[-2] != hs[1] or ops[-1] != 2:
-        return None
-    if (hi.dtype is not torch.float32 or lo.dtype is not torch.float32
-            or op.dtype is not torch.float64):
-        return None
+    hd = len(hs)
+    if hi.dtype is not torch.float32 or lo.dtype is not torch.float32:
+        raise TypeError(f"hi/lo must be float32, got {hi.dtype}/{lo.dtype}")
+    if op.dtype is not torch.float64:
+        raise TypeError(f"the operand must be float64, got {op.dtype}")
+    if lo.shape != hs or hd not in (2, 3):
+        raise ValueError(f"hi/lo must share a [K,I] or [B,K,I] shape, got "
+                         f"{tuple(hs)} / {tuple(lo.shape)}")
     dev = hi.device
     if lo.device != dev or op.device != dev:
-        return None
-    if not (hi.is_contiguous() and lo.is_contiguous()
-            and op.is_contiguous()):
-        return None
-    return (ops[0], True) if lead else (1, False)
-
-
-def _operands(hi, lo, op, vec_dims: int):
-    """Check hi/lo and the operand (``vec_dims`` trailing dims: [I,2] or
-    [K]) and bring them to what the kernels take. Returns (B, hi/lo batch
-    stride in elements, operand as contiguous [B, ...] — or unbatched when
-    B is 1, the same memory —, batched-output?). A stride of 0 shares one Dp
-    across the batch."""
-    usual = _usual(hi, lo, op, vec_dims)
-    if usual is not None:
-        return usual[0], 0, op, usual[1]
-    if hi.dtype != torch.float32 or lo.dtype != torch.float32:
-        raise TypeError(f"hi/lo must be float32, got {hi.dtype}/{lo.dtype}")
-    if op.dtype != torch.float64:
-        raise TypeError(f"the operand must be float64, got {op.dtype}")
-    hd, od = hi.dim(), op.dim()
-    if hi.shape != lo.shape or hd not in (2, 3):
-        raise ValueError(f"hi/lo must share a [K,I] or [B,K,I] shape, got "
-                         f"{tuple(hi.shape)} / {tuple(lo.shape)}")
-    if hi.device != lo.device or hi.device != op.device:
         raise ValueError("all operands must be on one device")
-    K, I = hi.shape[-2], hi.shape[-1]
+    K, I = hs[-2], hs[-1]
     want = (I, 2) if vec_dims == 2 else (K,)
-    if od not in (vec_dims, vec_dims + 1) or op.shape[-vec_dims:] != want:
+    lead = len(ops) - vec_dims
+    if not 0 <= lead <= hd - 1 or tuple(ops[lead:]) != want:
         raise ValueError(f"the operand must be [..., {', '.join(map(str, want))}]"
-                         f", got {tuple(op.shape)}")
-    op_b = op.shape[0] if od == vec_dims + 1 else None
-    hl_b = hi.shape[0] if hd == 3 else None
-    if op_b is not None and hl_b is not None and hl_b not in (1, op_b):
-        raise ValueError(f"batch mismatch: Dp {hl_b} vs operand {op_b}")
-    B = op_b if op_b is not None else (hl_b or 1)
-    stride = K * I if (hl_b is not None and hl_b == B and B > 1) else 0
-    if op_b is None and B > 1:          # one operand for a batch of tables
-        op = op.expand(B, *want)
-    if not op.is_contiguous():
-        op = op.contiguous()
+                         f" with at most {hd - 1} leading axes, got "
+                         f"{tuple(ops)}")
+    tables = hs[0] if hd == 3 else 1
+    lead_shape = tuple(ops[:lead])
+    M = 1
+    for n in lead_shape:
+        M *= n
+    if members_per_table is not None:
+        g = int(members_per_table)
+        if lead != 1:
+            raise ValueError("members_per_table goes with a flat [M, ...] "
+                             f"operand, got {tuple(ops)}")
+        if g < 1 or M != tables * g:
+            raise ValueError(f"{M} members are not {tables} tables of "
+                             f"{members_per_table} members each")
+    elif lead == 0:
+        g = 1
+        if hd == 3:                     # one operand for a batch of tables
+            M, lead_shape = tables, (tables,)
+            op = op.expand(tables, *want)
+    elif tables == ops[0]:
+        g = M // tables if tables else 1
+    elif tables == 1:
+        g = max(M, 1)
+    else:
+        raise ValueError(f"batch mismatch: Dp {tables} vs operand "
+                         f"{tuple(lead_shape)}")
     if not (hi.is_contiguous() and lo.is_contiguous()):
         raise ValueError("hi and lo must be contiguous")
-    return B, stride, op, (op_b is not None or hl_b is not None)
+    if not op.is_contiguous():
+        op = op.contiguous()
+    return M, g, op, lead_shape
 
 
 def _ceil_log2(n: int) -> int:
@@ -242,64 +273,62 @@ def _cuda_device(t: torch.Tensor) -> torch.device:
     return dev
 
 
-def dual_matvec_rows(hi: torch.Tensor, lo: torch.Tensor,
-                     x: torch.Tensor) -> torch.Tensor:
+def dual_matvec_rows(hi: torch.Tensor, lo: torch.Tensor, x: torch.Tensor,
+                     members_per_table=None) -> torch.Tensor:
     """``(hi + lo) @ x`` → [..., K, 2] float64. hi/lo [K,I] or [B,K,I]
-    float32; x [I,2] or [B,I,2] float64."""
-    B, stride, x, batched = _operands(hi, lo, x, 2)
+    float32; x [I,2], [B,I,2] or [B,C,I,2] float64 (see ``_operands``)."""
+    M, g, xc, lead = _operands(hi, lo, x, 2, members_per_table)
     if hi.device.type == "cpu":
-        return dual_matvec_rows_plain(hi, lo, x)
+        return dual_matvec_rows_plain(hi, lo, x, members_per_table)
     dev = _cuda_device(hi)
     K, I = hi.shape[-2], hi.shape[-1]
-    if B > _GRID_YZ_MAX:
-        raise ValueError(f"batch {B} exceeds the kernel's grid")
-    out = torch.empty((B, K, 2) if batched else (K, 2), dtype=torch.float64,
-                      device=dev)
-    if K and I and B:
+    if M > _GRID_YZ_MAX:
+        raise ValueError(f"batch {M} exceeds the kernel's grid")
+    out = torch.empty(lead + (K, 2), dtype=torch.float64, device=dev)
+    if K and I and M:
         from .._build import load
         err = load().split_dual_matvec_rows(
-            hi.data_ptr(), lo.data_ptr(), stride, x.data_ptr(),
-            out.data_ptr(), B, K, I, rows_lanes(I), dev.index, _stream(dev))
+            hi.data_ptr(), lo.data_ptr(), g, xc.data_ptr(),
+            out.data_ptr(), M, K, I, rows_lanes(I), dev.index, _stream(dev))
         if err != 0:
             raise RuntimeError(f"split_dual_matvec_rows launch failed: "
                                f"cudaError {err}")
-        _count("dual_matvec_rows")
+        _count("dual_matvec_rows", hi, g)
     else:
         out.zero_()
     return out
 
 
-def matvec_cols(hi: torch.Tensor, lo: torch.Tensor,
-                s: torch.Tensor) -> torch.Tensor:
+def matvec_cols(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
+                members_per_table=None) -> torch.Tensor:
     """``sᵀ (hi + lo)`` → [..., I] float64. hi/lo [K,I] or [B,K,I] float32;
-    s [K] or [B,K] float64."""
-    B, stride, s, batched = _operands(hi, lo, s, 1)
+    s [K], [B,K] or [B,C,K] float64 (see ``_operands``)."""
+    M, g, sc, lead = _operands(hi, lo, s, 1, members_per_table)
     if hi.device.type == "cpu":
-        return matvec_cols_plain(hi, lo, s)
+        return matvec_cols_plain(hi, lo, s, members_per_table)
     dev = _cuda_device(hi)
     K, I = hi.shape[-2], hi.shape[-1]
-    out = torch.empty((B, I) if batched else (I,), dtype=torch.float64,
-                      device=dev)
-    if K and I and B:
+    out = torch.empty(lead + (I,), dtype=torch.float64, device=dev)
+    if K and I and M:
         from .._build import load
         hp, lp = hi.data_ptr(), lo.data_ptr()
         vec, tx_log2, kc, ncb, nch = cols_plan(
-            B, K, I, (hp | lp) % 16 == 0, _sm_count(dev))
-        if B > _GRID_YZ_MAX or nch > _GRID_YZ_MAX:
-            raise ValueError(f"batch {B} / {nch} K chunks exceed the "
+            M, K, I, (hp | lp) % 16 == 0, _sm_count(dev))
+        if M > _GRID_YZ_MAX or nch > _GRID_YZ_MAX:
+            raise ValueError(f"batch {M} / {nch} K chunks exceed the "
                              f"kernel's grid")
         stream = _stream(dev)
         part = tick = 0
         if nch > 1:
-            ws = _workspace(dev, stream, B * nch * I, B * ncb)
+            ws = _workspace(dev, stream, M * nch * I, M * ncb)
             part, tick = ws[0].data_ptr(), ws[1].data_ptr()
         err = load().split_matvec_cols(
-            hp, lp, stride, s.data_ptr(), part, tick, out.data_ptr(),
-            B, K, I, vec, tx_log2, kc, dev.index, stream)
+            hp, lp, g, sc.data_ptr(), part, tick, out.data_ptr(),
+            M, K, I, vec, tx_log2, kc, dev.index, stream)
         if err != 0:
             raise RuntimeError(f"split_matvec_cols launch failed: "
                                f"cudaError {err}")
-        _count("matvec_cols")
+        _count("matvec_cols", hi, g)
     else:
         out.zero_()
     return out

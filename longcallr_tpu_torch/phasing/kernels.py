@@ -8,9 +8,10 @@ reductions — ``aki`` emissions, the read-level surrogate
 overall objective (phase.rs:257-276). The surrogate ratios
 ``1 - logQ1/(ΣlogQs)`` are the same f64 expressions as the reference.
 
-Tables are [K, I]; the state vectors may carry leading batch axes (σ
-[..., K], δ/η [..., I]) that broadcast over one shared table — the
-enumeration path runs its configs that way. Every f64 quantity gets its
+Tables are [K, I], or [B, K, I] for a bucket of regions (``site_mask``
+[B, I] then); the state vectors may carry leading batch axes (σ [..., K],
+δ/η [..., I]) that broadcast over the tables — the enumeration path runs
+its configs that way. Every f64 quantity gets its
 dtype explicitly (torch's default dtype is f32).
 """
 
@@ -125,8 +126,8 @@ def _masked_sum(m, v, dim):
 def read_logliks(ct: CellTables, delta, eta, site_mask):
     """Per-read log-sums L(σ=+1), L(σ=-1) over masked cells, plus per-read
     cell counts. x = σ·δ_i where η_i==0 else η_i (phase.rs:32-49).
-    ``site_mask`` [I]."""
-    m = site_mask[None, :] & ct.exists
+    ``site_mask`` [..., I]."""
+    m = site_mask[..., None, :] & ct.exists
     x_plus = torch.where(eta == 0, delta, eta)[..., None, :]
     x_minus = torch.where(eta == 0, -delta, eta)[..., None, :]
     tp = _masked_sum(m, _cell_term(ct, x_plus), -1)

@@ -24,8 +24,13 @@ the two matvecs go to the hand kernels of ``cuda_kernels`` (f64
 accumulation on the card). The split form's table reductions keep the JAX
 package's contract: F32_CHUNK-chunked f32 partials combined in f64.
 
-State vectors may carry one leading batch axis (σ [B,K], δ/η [B,I]); the
-tables are shared by the batch.
+Every table may carry a leading region axis (a bucket of same-shape
+regions: cells [B,K,I], ``dp2`` [2,B,K,I], row vectors [B,K], column
+vectors [B,I], ``read_mask`` [B,K]); per member the values are those of
+the unbatched build. State vectors carry the tables' leading axes, and may
+carry one more for the members that share a table (the enumeration
+configs: σ [C,K] over tables [K,I], or σ [B,C,K] over tables [B,K,I] that
+``for_members`` has given the axis to broadcast over).
 """
 
 from __future__ import annotations
@@ -66,23 +71,35 @@ def make_fast_tables(ct: CellTables, read_mask, site_mask) -> FastTables:
     """Build the fixed reductions. ``read_mask`` is the ascent's active read
     set (read_base & σ≠0 — constant during an ascent since σ only flips
     sign)."""
-    m = site_mask[None, :] & ct.exists
+    m = site_mask[..., None, :] & ct.exists
     z = _zero(ct.l1m)
     diff = torch.where(m, ct.l1m - ct.lerr, z)
     lerr = torch.where(m, ct.lerr, z)
     dp = diff * ct.p
-    ms = m & read_mask[:, None]
+    ms = m & read_mask[..., :, None]
     return FastTables(
         dp=dp,
-        row_b=lerr.sum(dim=1),
-        row_dif=diff.sum(dim=1),
-        col_b=torch.where(ms, ct.lerr, z).sum(dim=0),
-        col_dif=torch.where(ms, diff, z).sum(dim=0),
-        col_dp=torch.where(ms, dp, z).sum(dim=0),
-        row_cells=m.sum(dim=1),
-        cov=ms.sum(dim=0),
+        row_b=lerr.sum(dim=-1),
+        row_dif=diff.sum(dim=-1),
+        col_b=torch.where(ms, ct.lerr, z).sum(dim=-2),
+        col_dif=torch.where(ms, diff, z).sum(dim=-2),
+        col_dp=torch.where(ms, dp, z).sum(dim=-2),
+        row_cells=m.sum(dim=-1),
+        cov=ms.sum(dim=-2),
         read_mask=read_mask,
     )
+
+
+def for_members(ft):
+    """Tables of a bucket ([B, ...]) for state vectors that carry one more
+    axis, the members that share a region's table (σ [B,C,K], δ/η
+    [B,C,I]): every vector gets the axis to broadcast over, and so does the
+    f64 ``dp``; the split ``dp2`` stays [2,B,K,I], since the hand kernels
+    take the members per table as it is."""
+    vec = [v.unsqueeze(-2) for v in ft[1:]]
+    if isinstance(ft, FastTables32):
+        return FastTables32(ft.dp2, *vec)
+    return FastTables(ft.dp.unsqueeze(-3), *vec)
 
 
 def _uv(delta, eta):
@@ -158,7 +175,7 @@ def split_f32(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def make_fast_tables32(ct: CellTables, read_mask, site_mask) -> FastTables32:
     ft = make_fast_tables(ct, read_mask, site_mask)
     hi, lo = split_f32(ft.dp)
-    return FastTables32(torch.stack([hi, lo]), *ft[1:])
+    return FastTables32(torch.stack([hi, lo]), *ft[1:])   # [2, ..., K, I]
 
 
 # f32-split emission tables: diff = l1m − lerr; each f64 table value is an
@@ -177,26 +194,28 @@ def _chunks(n: int) -> int:
 
 
 def _ones_sum_rows(a32: torch.Tensor) -> torch.Tensor:
-    """Σ over the minor axis of [K,I] f32: F32_CHUNK-chunked f32 partials
-    combined in f64 (the split matvecs' accumulation contract in the JAX
-    package)."""
-    K, I = a32.shape
+    """Σ over the minor axis of [..., K, I] f32: F32_CHUNK-chunked f32
+    partials combined in f64 (the split matvecs' accumulation contract in
+    the JAX package). A leading region axis changes neither the chunks nor
+    the order in which they are combined."""
+    *lead, K, I = a32.shape
     c = _chunks(I)
-    parts = a32.reshape(K, I // c, c).sum(dim=2, dtype=f32)
-    return parts.to(f64).sum(dim=1)
+    parts = a32.reshape(*lead, K, I // c, c).sum(dim=-1, dtype=f32)
+    return parts.to(f64).sum(dim=-1)
 
 
 def _ones_sum_cols(a32: torch.Tensor) -> torch.Tensor:
-    """Σ over the major axis of [K,I] f32 (see _ones_sum_rows)."""
-    K, I = a32.shape
+    """Σ over the major axis of [..., K, I] f32 (see _ones_sum_rows)."""
+    *lead, K, I = a32.shape
     c = _chunks(K)
-    parts = a32.reshape(K // c, c, I).sum(dim=1, dtype=f32)
-    return parts.to(f64).sum(dim=0)
+    parts = a32.reshape(*lead, K // c, c, I).sum(dim=-2, dtype=f32)
+    return parts.to(f64).sum(dim=-2)
 
 
 def fast_tables32_from_compact(cc, read_mask, site_mask) -> FastTables32:
-    """FastTables32 built directly from CompactCells: f32 table gathers and
-    chunked f32 reductions, no [K,I] f64 intermediate.
+    """FastTables32 built directly from CompactCells ([K,I], or [B,K,I]
+    with masks [B,K] / [B,I]): f32 table gathers and chunked f32
+    reductions, no [K,I] f64 intermediate.
 
     Exactness vs the expand-then-split build (make_fast_tables32):
       * dp2 is bit-identical: f32(diff·p) == f32(diff)·p for p ∈ {±1};
@@ -207,8 +226,8 @@ def fast_tables32_from_compact(cc, read_mask, site_mask) -> FastTables32:
     p8, q8 = cc.p, cc.q
     dev = p8.device
     exists = p8 != 0
-    m = site_mask[None, :] & exists
-    ms = m & read_mask[:, None]
+    m = site_mask[..., None, :] & exists
+    ms = m & read_mask[..., :, None]
     qi = capped_q(q8)
     dif_hi = torch.as_tensor(_DIFF_HI_NP, device=dev)[qi]
     dif_lo = torch.as_tensor(_DIFF_LO_NP, device=dev)[qi]
@@ -219,7 +238,7 @@ def fast_tables32_from_compact(cc, read_mask, site_mask) -> FastTables32:
     qf = qi.to(f32)
     qm = torch.where(m, qf, zero)
     qms = torch.where(ms, qf, zero)
-    rm = read_mask[:, None]
+    rm = read_mask[..., :, None]
     row_b = -0.1 * _ones_sum_rows(qm)
     row_dif = (_ones_sum_rows(torch.where(m, dif_hi, zero))
                + _ones_sum_rows(torch.where(m, dif_lo, zero)))
@@ -281,39 +300,42 @@ F32_BF_TOL: float = (float(_BF_ENV) if _BF_ENV else 1e-3)
 
 def fast_block_flip32(ft: FastTables32, p8, sigma, delta, eta, site_mask,
                       block_id):
-    """block_flip_pass over the split tables for one region.
+    """block_flip_pass over the split tables for one region, or for a
+    bucket of regions when every argument carries the leading region axis.
 
-    ``block_id`` is [I] int (−1 = unblocked column). Returns (new_sigma,
-    new_delta, margin) with ``margin`` = min over blocks of
-    |Σ_block Δq| / block_size; margin < F32_BF_TOL means some block decision
-    sat inside the f32 error envelope and the caller recomputes the pass
-    exactly on the host.
+    ``block_id`` is [..., I] int (−1 = unblocked column). Returns
+    (new_sigma, new_delta, margin) with ``margin`` [...] = min over blocks
+    of |Σ_block Δq| / block_size; margin < F32_BF_TOL means some block
+    decision sat inside the f32 error envelope and the caller recomputes
+    the pass exactly on the host.
 
         S'_match = S_flip + δ·H      S'_flip = S_match − δ·H
         H[i] = Σ_k (m∘diff∘p)[k,i] · σ_k · F[k,i]
 
     with F[k,i] = 1 on cells of a read's own fully-containing block."""
-    K, I = p8.shape
+    *lead, K, I = p8.shape
     dev = p8.device
     exists = p8 != 0
     s_match, s_flip, s_refe, s_alte, cov = fast_snp_sums32(ft, sigma, delta)
 
     bid = block_id.long()
+    bid_r = bid[..., None, :]                               # [..., 1, I]
     big = torch.full((), I + 1, dtype=torch.long, device=dev)
     small = torch.full((), -2, dtype=torch.long, device=dev)
     minus1 = torch.full((), -1, dtype=torch.long, device=dev)
-    bmin = torch.where(exists, bid[None, :], big).min(dim=1).values
-    bmax = torch.where(exists, bid[None, :], small).max(dim=1).values
+    bmin = torch.where(exists, bid_r, big).min(dim=-1).values
+    bmax = torch.where(exists, bid_r, small).max(dim=-1).values
     full_in = torch.where((bmin == bmax) & (bmax >= 0), bmax, minus1)
-    F = (full_in[:, None] == bid[None, :]) & (bid[None, :] >= 0)
+    full_c = full_in[..., :, None]                          # [..., K, 1]
+    F = (full_c == bid_r) & (bid_r >= 0)
 
     # the one new contraction: chunked f32 partials, f64 chunk combine
     c = _chunks(K)
-    sf = (torch.where(ft.read_mask, sigma, _zero(sigma)).to(f32)[:, None]
+    sf = (torch.where(ft.read_mask, sigma, _zero(sigma)).to(f32)[..., :, None]
           * F.to(f32))
-    d = ft.dp2.reshape(2, K // c, c, I)
-    parts = (d * sf.reshape(1, K // c, c, I)).sum(dim=2, dtype=f32)
-    H = (parts[0].to(f64) + parts[1].to(f64)).sum(dim=0)
+    d = ft.dp2.reshape(2, *lead, K // c, c, I)
+    parts = (d * sf.reshape(1, *lead, K // c, c, I)).sum(dim=-2, dtype=f32)
+    H = (parts[0].to(f64) + parts[1].to(f64)).sum(dim=-2)
 
     s_match_new = s_flip + delta * H
     s_flip_new = s_match - delta * H
@@ -335,31 +357,34 @@ def fast_block_flip32(ft: FastTables32, p8, sigma, delta, eta, site_mask,
 
     # per-block Δ sums over an NB == I one-hot (block count ≤ site count)
     ar = torch.arange(I, device=dev)
-    onehot = (bid[:, None] == ar[None, :]) & (bid[:, None] >= 0)   # [I, NB]
-    dsum = torch.where(onehot, dq[:, None], _zero(dq)).sum(dim=0)
-    ncols = onehot.sum(dim=0)
+    bid_c = bid[..., :, None]                               # [..., I, 1]
+    onehot = (bid_c == ar) & (bid_c >= 0)                   # [..., I, NB]
+    dsum = torch.where(onehot, dq[..., :, None], _zero(dq)).sum(dim=-2)
+    ncols = onehot.sum(dim=-2)
     has = ncols > 0
 
     # exact global-flip symmetry: when no active masked cell at a block's
     # columns belongs to a partially-overlapping read, the host's Σ Δq is
     # exactly 0.0 and it never flips — decided with integer logic here
-    m0 = exists & site_mask[None, :] & ft.read_mask[:, None]
-    part = m0 & (bid[None, :] >= 0) & (full_in[:, None] != bid[None, :])
-    cnt_col = part.sum(dim=0)
-    npart = torch.where(onehot, cnt_col[:, None],
-                        torch.zeros((), dtype=cnt_col.dtype, device=dev)).sum(dim=0)
+    m0 = exists & site_mask[..., None, :] & ft.read_mask[..., :, None]
+    part = m0 & (bid_r >= 0) & (full_c != bid_r)
+    cnt_col = part.sum(dim=-2)
+    npart = torch.where(onehot, cnt_col[..., :, None],
+                        torch.zeros((), dtype=cnt_col.dtype, device=dev)
+                        ).sum(dim=-2)
     sym = has & (npart == 0)
 
     flipb = has & ~sym & (dsum > TIE_TOL)
     inf = torch.full((), float("inf"), dtype=f64, device=dev)
     margin = torch.where(has & ~sym,
                          dsum.abs() / ncols.to(f64).clamp(min=1.0),
-                         inf).min()
+                         inf).min(dim=-1).values
 
-    fb_col = (onehot & flipb[None, :]).any(dim=1)
+    flipb_r = flipb[..., None, :]                           # [..., 1, NB]
+    fb_col = (onehot & flipb_r).any(dim=-1)
     new_delta = torch.where(fb_col, -delta, delta)
-    covers = (exists & site_mask[None, :] & F).any(dim=1)
-    oneh_k = full_in[:, None] == ar[None, :]
-    flip_read = (oneh_k & flipb[None, :]).any(dim=1) & covers & ft.read_mask
+    covers = (exists & site_mask[..., None, :] & F).any(dim=-1)
+    oneh_k = full_c == ar
+    flip_read = (oneh_k & flipb_r).any(dim=-1) & covers & ft.read_mask
     new_sigma = torch.where(flip_read, -sigma, sigma)
     return new_sigma, new_delta, margin

@@ -37,6 +37,7 @@ import torch
 from ..config import CallerConfig
 
 from ..ops.candidates import CandidateSet
+from ..utils.device import resolve_device
 from . import kernels_fast as KF
 from . import rng as R
 from .fragments import FragmentMatrix
@@ -108,11 +109,15 @@ def _select(mask, new: PhaseState, old: PhaseState) -> PhaseState:
                       sel(new.eta, old.eta))
 
 
-def _ascend(st: PhaseState, sigma_step, snp_step) -> PhaseState:
+def _ascend(st: PhaseState, sigma_step, snp_step) -> Tuple[PhaseState, int]:
     """≤21 synchronous half-step pairs; each member of a batch stops when
-    its own continue flag (any σ flip or any δ/η change) drops."""
+    its own continue flag (any σ flip or any δ/η change) drops. One host
+    sync per trip for the whole batch. Returns (state, trips taken — the
+    most any member needed)."""
     active = None
+    trips = 0
     for _ in range(21):
+        trips += 1
         new_sigma, s_inc = sigma_step(st)
         st1 = st._replace(sigma=new_sigma)
         new_delta, new_eta, d_inc = snp_step(st1)
@@ -124,7 +129,7 @@ def _ascend(st: PhaseState, sigma_step, snp_step) -> PhaseState:
             st, active = _select(active, st1, st), active & go
         if not bool(active.any()):
             break
-    return st
+    return st, trips
 
 
 def _snp_decision(q1, q2, q3, q4, cov, st: PhaseState, site_mask, conserved,
@@ -171,7 +176,7 @@ def _cross_optimize_loop(ct, st: PhaseState, read_base, site_mask,
         return _snp_decision(*snp_qs(*sums), sums[4], st, site_mask,
                              conserved, with_genotype, keep_conserved)
 
-    st = _ascend(st, sigma_step, snp_step)
+    st, _ = _ascend(st, sigma_step, snp_step)
     read_mask = read_base & (st.sigma != 0)
     prob = overall_probability(ct, st.sigma, st.delta, st.eta, read_mask,
                                site_mask)
@@ -181,13 +186,20 @@ def _cross_optimize_loop(ct, st: PhaseState, read_base, site_mask,
 def _fast_tables_for(ct, read_base, sigma, site_mask, split: bool):
     """Tables for an ascent whose entry state is σ: the active-read set
     read_base & (σ≠0) is invariant under the ascent and the perturbation
-    schedule (σ only flips sign), so a schedule builds them once. A batch
-    of entry states must share that set."""
+    schedule (σ only flips sign), so a schedule builds them once.
+
+    Cells [K,I] give one region's tables; cells [B,K,I] (with read_base and
+    σ [B,K], site_mask [B,I]) give a bucket's, one table per member. A σ
+    with one more axis than that (the enumeration configs) must share each
+    region's set."""
     rm0 = read_base & (sigma != 0)
-    if rm0.dim() > 1:
-        if not bool((rm0 == rm0[:1]).all()):
-            raise ValueError("batched ascents must share one active-read set")
-        rm0 = rm0[0]
+    lead = ct.p.dim() - 2
+    if rm0.dim() - 1 > lead:
+        first = rm0.select(lead, 0)
+        if not bool((rm0 == first.unsqueeze(lead)).all()):
+            raise ValueError("ascents that share a table must share one "
+                             "active-read set")
+        rm0 = first
     if split:
         if isinstance(ct, CompactCells):
             return KF.fast_tables32_from_compact(ct, rm0, site_mask)
@@ -198,9 +210,20 @@ def _fast_tables_for(ct, read_base, sigma, site_mask, split: bool):
 def _cross_optimize_fast_loop(ct, st: PhaseState, read_base, site_mask,
                               conserved, with_genotype: bool,
                               keep_conserved: bool, split: bool, ft=None):
+    st, prob, _ = _cross_optimize_fast_loop_it(
+        ct, st, read_base, site_mask, conserved, with_genotype,
+        keep_conserved, split, ft)
+    return st, prob
+
+
+def _cross_optimize_fast_loop_it(ct, st: PhaseState, read_base, site_mask,
+                                 conserved, with_genotype: bool,
+                                 keep_conserved: bool, split: bool, ft=None):
     """Matvec-form ascent (kernels_fast): the reference's argmax/tie rules,
     two matvecs per iteration. ``ft``: prebuilt tables (their active-read
-    mask must equal read_base & (st.sigma != 0))."""
+    mask must equal read_base & (st.sigma != 0)). With a leading region
+    axis on everything the whole bucket ascends in the same launches.
+    Returns (state, prob, trips)."""
     rm0 = read_base & (st.sigma != 0)
     if ft is None:
         ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
@@ -224,8 +247,8 @@ def _cross_optimize_fast_loop(ct, st: PhaseState, read_base, site_mask,
         return _snp_decision(*snp_qs(*sums), sums[4], st, site_mask,
                              conserved, with_genotype, keep_conserved)
 
-    st = _ascend(st, sigma_step, snp_step)
-    return st, objective(ft, st.sigma, st.delta, st.eta)
+    st, trips = _ascend(st, sigma_step, snp_step)
+    return st, objective(ft, st.sigma, st.delta, st.eta), trips
 
 
 def cross_optimize(ct, st: PhaseState, read_base, site_mask, conserved,
@@ -250,7 +273,8 @@ def f64_decision_margin_fast(p8, q8, sigma, delta, eta, read_base,
     """Smallest decision gap at a final state, in exact f64 (matvec form):
     per read |q − q_flip|, per SNP the top-2 gap among the four (δ, η)
     candidates. A gap below F32_SAFETY_TOL means a split-mode run may have
-    taken another branch than f64 would."""
+    taken another branch than f64 would. With a leading region axis on
+    every argument the margins come per region ([B])."""
     ct = as_tables(CompactCells(p8, q8))
     rm0 = read_base & (sigma != 0)
     ft = KF.make_fast_tables(ct, rm0, site_mask)
@@ -258,16 +282,27 @@ def f64_decision_margin_fast(p8, q8, sigma, delta, eta, read_base,
     upd = rm0 & (ncell > 0)
     q, qn = sigma_q(lp, lm, sigma)
     inf = torch.full((), float("inf"), dtype=f64, device=sigma.device)
-    sig_gap = torch.where(upd, (q - qn).abs(), inf).min()
+    sig_gap = torch.where(upd, (q - qn).abs(), inf).min(dim=-1).values
     sums = KF.fast_snp_sums(ft, sigma, delta)
-    qs = torch.stack(snp_qs(*sums))                       # [4, I]
+    qs = torch.stack(snp_qs(*sums))                       # [4, ..., I]
     upds = site_mask & (sums[4] > 0)
     mx = qs.max(dim=0).values
     am = qs.argmax(dim=0)
-    ar4 = torch.arange(4, device=qs.device)[:, None]
-    second = torch.where(ar4 == am[None, :], -inf, qs).max(dim=0).values
-    snp_gap = torch.where(upds, mx - second, inf).min()
+    ar4 = torch.arange(4, device=qs.device).reshape(4, *([1] * am.dim()))
+    second = torch.where(ar4 == am[None], -inf, qs).max(dim=0).values
+    snp_gap = torch.where(upds, mx - second, inf).min(dim=-1).values
     return torch.minimum(sig_gap, snp_gap)
+
+
+def f64_decision_margin_batched(p8, q8, sigma, delta, eta, read_base,
+                                site_mask) -> torch.Tensor:
+    """Per-region margins of a whole bucket in one pass ([B] out): cells
+    [B,K,I], σ and read_base [B,K], δ, η and site_mask [B,I]. The f64
+    tables of the whole bucket are live at once (about 50 bytes a cell)."""
+    if p8.dim() != 3:
+        raise ValueError(f"a bucket's cells are [B,K,I], got {tuple(p8.shape)}")
+    return f64_decision_margin_fast(p8, q8, sigma, delta, eta, read_base,
+                                    site_mask)
 
 
 def _overall_probability(ct, sigma, delta, eta, read_base, site_mask,
@@ -573,14 +608,31 @@ def _bucket(n: int, lo: int = 8) -> int:
 def phase_region(frags: FragmentMatrix, cands: CandidateSet,
                  cfg: CallerConfig, seed: int,
                  apply_downsampling: bool = False,
-                 device: torch.device = torch.device("cpu")) -> PhaseState:
-    """Run the full phase() optimization for one region on ``device``.
+                 device: Optional[torch.device] = None) -> PhaseState:
+    """Run the full phase() optimization for one region on ``device``
+    (``None``: the CUDA device, and it raises where there is none).
     Returns the final state as host numpy, sliced back to true sizes."""
+    device = resolve_device() if device is None else torch.device(device)
     K0, I0 = frags.p.shape
     if I0 == 0:
         return PhaseState(np.zeros(K0), np.zeros(0), np.zeros(0))
     st = _phase_region_padded(frags, cands, cfg, seed, apply_downsampling,
                               torch.device(device)).to_numpy()
+    return PhaseState(st.sigma[:K0], st.delta[:I0], st.eta[:I0])
+
+
+def phase_region_f64(frags: FragmentMatrix, cands: CandidateSet,
+                     cfg: CallerConfig, seed: int, apply_downsampling: bool,
+                     device: torch.device) -> PhaseState:
+    """The safety net's recompute of one region: the whole phase() in f64
+    on ``device``, counted in N_F64_RERUNS — what the per-region path does
+    for a split-mode result whose margins are inside the bound."""
+    K0, I0 = frags.p.shape
+    _note(kept=False)
+    st = _phase_region_padded_impl(
+        frags, cands, cfg, seed, apply_downsampling, K0, I0,
+        _bucket(max(1, K0)), _bucket(max(1, I0)), torch.device(device),
+        False).to_numpy()
     return PhaseState(st.sigma[:K0], st.delta[:I0], st.eta[:I0])
 
 

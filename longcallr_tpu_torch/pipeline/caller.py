@@ -1,22 +1,33 @@
 """Top-level caller: regions → per-region pipeline → VCF + phased BAM.
 
-Port of the resident per-region path of
-``longcallr_tpu/pipeline/caller.py`` (``longcallR/src/thread.rs:17-362``):
-a thread pool over regions (one region per worker, single-threaded
-inside), deterministic (contig, start)-ordered merges, and the serial
-phased-BAM pass. Every device stage runs on the ``device`` given to
-``run``.
+Port of the resident paths of ``longcallr_tpu/pipeline/caller.py``
+(``longcallR/src/thread.rs:17-362``): the per-region loop (a thread pool
+over regions, one region per worker, single-threaded inside) and the
+batched pipeline (waves of regions: threaded host prepare → one candidate
+call per wave → bucketed phasing, ``phasing/batch_driver.py`` → host
+finalize, with the next wave's prepare and phasing overlapped and the
+phased BAM written behind the waves), deterministic (contig, start)-ordered
+merges, and the serial phased-BAM pass. ``batched=None`` (AUTO) takes the
+batched pipeline when there is more than one region. Both paths write the
+same bytes. Every device stage runs on the ``device`` given to ``run``;
+worker threads are handed it explicitly.
 
-Not ported in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the batched bucket pipeline (``batched=True``), ``--resume``
-checkpoints, and the streaming and pod entry points. ``batched=None``
-(AUTO) resolves to the per-region path, which the JAX package holds
-byte-identical to the batched one.
+Environment knobs of the batched pipeline (the JAX package's, with its
+defaults): LONGCALLR_CAND_BATCH_COLS and LONGCALLR_WAVE_CELLS bound a
+wave, LONGCALLR_WAVE_OVERLAP=0 runs the waves strictly one after another,
+LONGCALLR_RESIDENT_WRITE_OVERLAP=0 writes the phased BAM at the end,
+LONGCALLR_FINALIZE_MT_CELLS fans the finalize of large regions out over
+threads.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``--resume`` checkpoints, and the streaming and pod entry points.
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -32,13 +43,15 @@ from ..io.fasta import FastaFile
 from ..io.vcf import load_input_candidates, write_vcf_header
 from ..phasing import optimize as _opt
 from ..tiles.regions import Region, extract_isolated_regions_parallel
+from ..utils.device import resolve_device
 from .annotation import intersect_gene_regions, parse_annotation
-from .engine import STAGE_TOTALS, RegionResult, process_region
+from .engine import (STAGE_TOTALS, RegionResult, finalize_region,
+                     import_external_candidates, prepare_region_fragments,
+                     prepare_region_pileup, process_region, stage_add)
 
 log = logging.getLogger("longcallr_tpu_torch")
 
-# ROADMAP.md "torch port" queue items for what this slice leaves out
-BATCHED_ITEM = "ROADMAP.md torch port queue: batched bucket programs"
+# ROADMAP.md "torch port" queue item for what is not ported yet
 RESUME_ITEM = "ROADMAP.md torch port queue: --stream and --resume"
 
 
@@ -58,6 +71,180 @@ class CallerOutputs:
     # by the safety net
     n_split_kept: int = 0
     n_f64_reruns: int = 0
+
+
+class _ResidentWriteOverlap:
+    """Ordered background phased-BAM writer for the batched resident path.
+
+    Byte-exact overlap of the reference's serial third pass
+    (thread.rs:307-361): the final output of that pass for a region's
+    records depends only on the first-wins merged assignment/phase-set maps
+    *restricted to that region's record qnames*. Region W (in the VCF's
+    sorted write order) can therefore be deflated as soon as
+
+      (a) every sorted region < F has its maps merged first-wins in sorted
+          order (exactly the serial pass's merge order), with W < F, and
+      (b) every record qname in W either already holds BOTH merged values
+          (final — no later region can override a first-wins entry) or
+          provably cannot receive one from any region >= F.
+
+    Condition (b) uses a per-qname upper bound on the last contributing
+    region: map keys are subsets of the region's overlap_range fetch
+    (phasing/fragments.py::get_fragments), so a read whose span ends before
+    every later region's start can never contribute again. Regions that
+    fail (b) queue until the frontier passes their bound; with unique
+    qnames (the long-read norm) nothing ever queues and each wave's records
+    deflate under the next wave's compute. LONGCALLR_RESIDENT_WRITE_OVERLAP=0
+    restores the strictly serial end-of-run write.
+    """
+
+    def __init__(self, bam: BamFile, regions: List[Region],
+                 contig_lengths, path: str, cfg: CallerConfig):
+        self._bam = bam
+        self._path = path
+        order = {c: i for i, (c, _) in enumerate(contig_lengths)}
+        n = len(regions)
+        # identical permutation to run()'s results_sorted (stable sort,
+        # same key) so records land in the same file order
+        self._perm = sorted(range(n), key=lambda i: (
+            order.get(regions[i].chr, 1 << 30), regions[i].start))
+        self._sorted_of_list = {li: si for si, li in enumerate(self._perm)}
+        self._regions = [regions[i] for i in self._perm]
+        self._writer = BamWriter(path, bam.references, bam.lengths,
+                                 header_text=bam.header_text,
+                                 level=cfg.bam_compression_level,
+                                 threads=max(1, cfg.threads))
+        self._pool = ThreadPoolExecutor(max_workers=1)
+        self._lock = threading.Lock()
+        self._done: Dict[int, tuple] = {}      # sorted idx → (asg, ps) maps
+        self._asg: Dict[str, int] = {}
+        self._ps: Dict[str, int] = {}
+        self._F = 0           # merge frontier: sorted[0..F) merged
+        self._W = 0           # write pointer: sorted[0..W) written
+        self._n_tagged = 0
+        self._bg_seconds = 0.0
+        self._futs = [self._pool.submit(self._prepass)]
+
+    def _prepass(self) -> None:
+        """Per-region kept record indices/qnames (the exact write filter)
+        and the per-qname last-contributing-region bound. Runs as the
+        writer thread's first job, overlapped with the first wave."""
+        t0 = time.monotonic()
+        bam = self._bam
+        n = len(self._regions)
+        self._ridxs: List[List[int]] = [[] for _ in range(n)]
+        self._keptq: List[List[str]] = [[] for _ in range(n)]
+        cb: Dict[str, int] = {}
+        by_contig: Dict[str, List[int]] = {}
+        for si, reg in enumerate(self._regions):
+            by_contig.setdefault(reg.chr, []).append(si)
+        for chrom, sidxs in by_contig.items():
+            lo, hi = bam.contig_record_range(chrom)
+            if lo == hi:
+                continue
+            qn = bam.qnames_at(np.arange(lo, hi))
+            # contribution bound: a record can reach region si's fetch only
+            # if that region starts before the record's span end (+2 slop
+            # over the replicated off-by-one fetch quirks). Regions of one
+            # contig are contiguous in sorted order and ascending by start.
+            starts = np.array([self._regions[si].start for si in sidxs],
+                              dtype=np.int64)
+            # ascending within a contig (discovery order survives the
+            # stable sort even when unknown contigs share a sort key);
+            # sidxs need not be contiguous, so index through it
+            if not (np.diff(starts) >= 0).all():
+                raise RuntimeError(
+                    f"regions of contig {chrom} are not in ascending start "
+                    "order: the write-overlap bound does not hold")
+            wpos = np.searchsorted(starts, bam.ref_end[lo:hi] + 2,
+                                   side="left") - 1
+            for k in range(hi - lo):
+                w = int(wpos[k])
+                if w >= 0:
+                    q = qn[k]
+                    si = sidxs[w]
+                    if cb.get(q, -1) < si:
+                        cb[q] = si
+            for si in sidxs:
+                reg = self._regions[si]
+                ridxs = tagged_record_indices(bam, chrom, reg.start, reg.end)
+                self._ridxs[si] = ridxs.tolist()
+                self._keptq[si] = [qn[int(i) - lo] for i in ridxs]
+        self._cb = cb
+        self._bg_seconds += time.monotonic() - t0
+
+    def wave_done(self, pairs) -> None:
+        """Main thread: a wave's (list_index, RegionResult) pairs are final."""
+        with self._lock:
+            for li, res in pairs:
+                self._done[self._sorted_of_list[li]] = (
+                    res.read_assignments, res.phase_sets)
+        self._futs.append(self._pool.submit(self._advance))
+
+    def _advance(self) -> None:
+        t0 = time.monotonic()
+        with self._lock:
+            done = dict(self._done)
+        n = len(self._regions)
+        while self._F < n and self._F in done:
+            asg, ps = done[self._F]
+            for k, v in asg.items():
+                self._asg.setdefault(k, v)
+            for k, v in ps.items():
+                self._ps.setdefault(k, v)
+            self._F += 1
+        while self._W < self._F and self._safe(self._W):
+            ridxs = self._ridxs[self._W]
+            if ridxs:
+                self._n_tagged += write_tagged_records(
+                    self._bam, ridxs, self._asg, self._ps, self._writer)
+            self._W += 1
+        self._bg_seconds += time.monotonic() - t0
+
+    def _safe(self, w: int) -> bool:
+        if self._F >= len(self._regions):
+            return True       # everything merged: all values final
+        asg, ps, cb, F = self._asg, self._ps, self._cb, self._F
+        for q in self._keptq[w]:
+            if cb.get(q, -1) >= F and not (q in asg and q in ps):
+                return False  # a region >= F could still contribute q
+        return True
+
+    def finish(self) -> Tuple[int, float]:
+        """Drain the queue, close the writer. Returns (n_tagged,
+        background_seconds). Must be called after every region's
+        wave_done."""
+        self._futs.append(self._pool.submit(self._advance))
+        err = None
+        for f in self._futs:
+            try:
+                f.result()
+            except BaseException as e:   # close the file either way
+                err = err or e
+        self._pool.shutdown(wait=True)
+        if err is None and self._W != len(self._regions):
+            err = RuntimeError(
+                f"resident write overlap stalled at {self._W}/"
+                f"{len(self._regions)} regions (merged {self._F})")
+        self._writer.close()
+        if err is not None:
+            raise err
+        return self._n_tagged, self._bg_seconds
+
+    def abort(self) -> None:
+        """Pipeline failed: stop, close, and remove the partial file (the
+        serial path would have produced no BAM at all)."""
+        try:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+        finally:
+            try:
+                self._writer.close()
+            except BaseException:
+                pass
+            try:
+                os.unlink(self._path)
+            except OSError:
+                pass
 
 
 def build_regions(bam: BamFile, fasta: FastaFile, cfg: CallerConfig,
@@ -106,13 +293,16 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
         contigs: Optional[Sequence[str]] = None,
         anno_path: Optional[str] = None,
         resume: bool = False, batched: Optional[bool] = None,
-        device: torch.device = torch.device("cpu")) -> CallerOutputs:
-    """Resident per-region run on ``device``."""
-    if batched:
-        raise NotImplementedError(f"batched pipeline not ported ({BATCHED_ITEM})")
+        device: Optional[torch.device] = None) -> CallerOutputs:
+    """Resident run on ``device`` (``None``: the CUDA device, and it raises
+    where there is none).
+
+    ``batched=None`` resolves to the batched pipeline when there is more
+    than one region (only then does a bucket amortise its launches) and to
+    the per-region loop otherwise."""
     if resume:
         raise NotImplementedError(f"--resume not ported ({RESUME_ITEM})")
-    device = torch.device(device)
+    device = resolve_device() if device is None else torch.device(device)
     t0 = time.monotonic()
     stage: Dict[str, float] = {}
     totals0 = dict(STAGE_TOTALS)
@@ -159,39 +349,69 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
     # warm the per-contig reference cache serially to avoid duplicate loads
     for chrom in {r.chr for r in regions}:
         fasta.fetch(chrom)
-    if cfg.threads > 1 and len(regions) > 1:
-        with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
-            results = list(ex.map(work, regions))
-    else:
-        results = [work(r) for r in regions]
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    stage["regions_pipeline"] = time.monotonic() - t2
+    if batched is None:
+        batched = len(regions) > 1
+    # overlapped phased-BAM write: each wave's records deflate on an
+    # ordered writer thread under the next wave's compute (byte-identical;
+    # see _ResidentWriteOverlap)
+    ov = None
+    if (batched and not cfg.no_bam_output and len(regions) > 0
+            and os.environ.get("LONGCALLR_RESIDENT_WRITE_OVERLAP", "1") != "0"):
+        ov = _ResidentWriteOverlap(bam, regions, fasta.contig_lengths,
+                                   output_prefix + ".phased.bam", cfg)
+    # everything from the region pipeline through ov.finish() aborts the
+    # background writer on failure (stops the pool, closes the file, removes
+    # the partial .phased.bam — the serial path would have produced none);
+    # after finish() returns the file is complete and must not be unlinked
+    try:
+        if batched:
+            results = _run_batched(bam, fasta, regions, cfg, input_candidates,
+                                   exon_regions, device,
+                                   on_wave=(ov.wave_done if ov else None))
+        elif cfg.threads > 1 and len(regions) > 1:
+            with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+                results = list(ex.map(work, regions))
+        else:
+            results = [work(r) for r in regions]
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        stage["regions_pipeline"] = time.monotonic() - t2
 
-    # --- VCF (deterministic contig order, then region order) ---
-    t3 = time.monotonic()
-    order = {c: i for i, (c, _) in enumerate(fasta.contig_lengths)}
-    results_sorted = sorted(
-        zip(regions, results),
-        key=lambda t: (order.get(t[0].chr, 1 << 30), t[0].start))
-    vcf_path = output_prefix + ".vcf"
-    n_records = 0
-    n_phased = 0
-    with open(vcf_path, "w") as vf:
-        write_vcf_header(vf, fasta.contig_lengths)
-        for _, res in results_sorted:
-            for line in res.vcf_lines:
-                vf.write(line + "\n")
-                n_records += 1
-                gt = line.split("\t")[9].split(":", 1)[0]
-                if gt in ("0|1", "1|0"):
-                    n_phased += 1
-    stage["vcf"] = time.monotonic() - t3
+        # --- VCF (deterministic contig order, then region order) ---
+        t3 = time.monotonic()
+        order = {c: i for i, (c, _) in enumerate(fasta.contig_lengths)}
+        results_sorted = sorted(
+            zip(regions, results),
+            key=lambda t: (order.get(t[0].chr, 1 << 30), t[0].start))
+        vcf_path = output_prefix + ".vcf"
+        n_records = 0
+        n_phased = 0
+        with open(vcf_path, "w") as vf:
+            write_vcf_header(vf, fasta.contig_lengths)
+            for _, res in results_sorted:
+                for line in res.vcf_lines:
+                    vf.write(line + "\n")
+                    n_records += 1
+                    gt = line.split("\t")[9].split(":", 1)[0]
+                    if gt in ("0|1", "1|0"):
+                        n_phased += 1
+        stage["vcf"] = time.monotonic() - t3
 
-    # --- phased BAM, serial pass (thread.rs:307-361) ---
-    phased_bam_path = None
-    n_tagged = 0
-    if not cfg.no_bam_output:
+        # --- phased BAM (thread.rs:307-361) ---
+        phased_bam_path = None
+        n_tagged = 0
+        if ov is not None:
+            t4 = time.monotonic()
+            n_tagged, bg = ov.finish()
+            phased_bam_path = output_prefix + ".phased.bam"
+            stage["phased_bam"] = time.monotonic() - t4  # visible drain only
+            stage["phased_bam_bg"] = bg                  # overlapped work
+    except BaseException:
+        if ov is not None:
+            ov.abort()
+        raise
+    if ov is None and not cfg.no_bam_output:
+        # serial pass
         t4 = time.monotonic()
         read_assignments: Dict[str, int] = {}
         read_phasesets: Dict[str, int] = {}
@@ -213,9 +433,12 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
         stage["phased_bam"] = time.monotonic() - t4
 
     stage["total"] = time.monotonic() - t0
-    # cumulative seconds of the per-region stages (summed over threads)
-    for k, v in STAGE_TOTALS.items():
-        stage[f"region_{k}"] = v - totals0.get(k, 0.0)
+    # cumulative seconds of the per-region stages (summed over threads);
+    # the bucket phasing's phase_* seconds and counts keep the JAX
+    # package's names
+    for k, v in list(STAGE_TOTALS.items()):
+        name = k if k.startswith("phase_") else f"region_{k}"
+        stage[name] = v - totals0.get(k, 0.0)
     n_assigned = sum(1 for _, res in results_sorted
                      for v in res.read_assignments.values() if v != 0)
     return CallerOutputs(vcf_path=vcf_path, phased_bam_path=phased_bam_path,
@@ -226,3 +449,212 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
                          n_candidates=sum(r.n_candidates for _, r in results_sorted),
                          n_split_kept=_opt.N_SPLIT_KEPT - kept0,
                          n_f64_reruns=_opt.N_F64_RERUNS - reruns0)
+
+
+def _run_batched(bam, fasta, regions, cfg, input_candidates, exon_regions,
+                 device: torch.device, on_wave=None):
+    """Three-stage batched pipeline: threaded host prepare → bucketed
+    device phasing (phasing/batch_driver.py) → host finalize.
+
+    ``on_wave``: called with a list of (region_index, RegionResult) pairs
+    as each wave finalizes (and once up front for skipped regions) — the
+    overlapped phased-BAM writer's feed.
+
+    Checkpoint seam: ``--resume`` is not ported. Its checkpoint would be
+    read in the triage loop below (a completed region drops out of
+    ``todo_prep``) and written where a wave's results are stored, in wave
+    order."""
+    from ..ops.candidates import CAND_BATCH_COLS, select_candidates_batched
+    from ..phasing.batch_driver import phase_regions_batched
+
+    results: List[Optional[RegionResult]] = [None] * len(regions)
+    prepared: List[Optional[tuple]] = [None] * len(regions)
+
+    pooled = cfg.threads > 1 and len(regions) > 1
+    # one region per pool worker, single-threaded inside (the rayon layout):
+    # the native decode releases the GIL, so the pool parallelises it without
+    # nested thread oversubscription
+    cfg_task = cfg.replace(threads=1) if pooled else cfg
+
+    # triage: exon-skipped regions drop out up front
+    todo_prep: List[Tuple[int, Optional[np.ndarray]]] = []
+    for i, reg in enumerate(regions):
+        exon_mask = None
+        if cfg.exon_only and reg.gene_id is not None:
+            exon_mask = _exon_mask_for(reg, exon_regions)
+            if exon_mask is None:
+                results[i] = RegionResult(reg, [], {}, {}, 0, 0)
+                continue
+        todo_prep.append((i, exon_mask))
+    if on_wave is not None:
+        preset_pairs = [(i, r) for i, r in enumerate(results) if r is not None]
+        if preset_pairs:
+            on_wave(preset_pairs)
+
+    # Waves bounded by the candidate kernel's column budget AND a host-work
+    # budget (estimated pileup cells = columns × discovered coverage): deep
+    # loci split into several waves so the double-buffered prepare below has
+    # something to overlap. Each wave runs end to end — pooled pileup → one
+    # batched candidate call → pooled fragments → bucketed phasing →
+    # finalize. Wave composition cannot change results: bucketing is
+    # composition-independent (per-region seed streams,
+    # phasing/batch_driver.py).
+    wave_cells = int(os.environ.get("LONGCALLR_WAVE_CELLS",
+                                    str(32 * 1024 * 1024)))
+    # regions with at least this many fragment-matrix cells finalize on a
+    # thread pool (the deep-wave finalize fan-out below); 0 (the default)
+    # keeps finalize serial
+    _env = os.environ.get("LONGCALLR_FINALIZE_MT_CELLS", "0")
+    try:
+        _env_val = int(_env)
+    except ValueError:
+        raise ValueError(
+            f"LONGCALLR_FINALIZE_MT_CELLS must be an integer, got {_env!r}")
+    finalize_mt_cells = _env_val if _env_val > 0 else (1 << 62)
+
+    def _pileup_one(item):
+        i, _ = item
+        reg = regions[i]
+        return prepare_region_pileup(bam, reg, fasta.fetch(reg.chr), cfg_task)
+
+    def _cands_one(arg):
+        (i, _), pl = arg
+        chr_cands = input_candidates.get(regions[i].chr, {})
+        return import_external_candidates(pl, fasta.fetch(regions[i].chr),
+                                          chr_cands)
+
+    def _frags_one(arg):
+        i, cands = arg
+        frags, apply_ds = prepare_region_fragments(bam, regions[i], cands,
+                                                   cfg_task)
+        prepared[i] = (cands, frags, apply_ds)
+
+    def _pmap(fn, items):
+        if pooled and len(items) > 1:
+            with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+                return list(ex.map(fn, items))
+        return [fn(it) for it in items]
+
+    def _cells(idx: int) -> int:
+        reg = regions[idx]
+        return reg.length * max(1, getattr(reg, "max_coverage", 0) or 0)
+
+    wave_spans: List[List[Tuple[int, Optional[np.ndarray]]]] = []
+    w0 = 0
+    while w0 < len(todo_prep):
+        w1 = w0 + 1
+        tot = regions[todo_prep[w0][0]].length
+        cells = _cells(todo_prep[w0][0])
+        while (w1 < len(todo_prep)
+               and tot + regions[todo_prep[w1][0]].length <= CAND_BATCH_COLS
+               and cells + _cells(todo_prep[w1][0]) <= wave_cells):
+            tot += regions[todo_prep[w1][0]].length
+            cells += _cells(todo_prep[w1][0])
+            w1 += 1
+        wave_spans.append(todo_prep[w0:w1])
+        w0 = w1
+
+    def _prepare_wave(wave):
+        """Host stages of one wave (pileup → candidates → fragments); fills
+        prepared[] and returns (todo, phase_items, phase_index)."""
+        pileups = _pmap(_pileup_one, wave)
+        _t = time.monotonic()
+        if input_candidates is not None:
+            cands_list = _pmap(_cands_one, list(zip(wave, pileups)))
+        else:
+            cands_list = select_candidates_batched(
+                pileups, cfg, [em for _, em in wave], device=device)
+        stage_add("candidates", time.monotonic() - _t)
+        del pileups
+        _pmap(_frags_one, [(i, c) for (i, _), c in zip(wave, cands_list)])
+        todo = [i for (i, _) in wave if prepared[i] is not None]
+        phase_items = []
+        phase_index = []
+        for i in todo:
+            cands, frags, apply_ds = prepared[i]
+            if cands.n > 0 and frags.n_frags > 0:
+                phase_items.append((frags, cands, regions[i].start, apply_ds))
+                phase_index.append(i)
+        return todo, phase_items, phase_index
+
+    def _phase_wave(prep):
+        """A wave's bucketed phasing. Every launch stays on the device's
+        default stream, whichever thread calls: the phase worker and the
+        prepare worker (candidates) are then ordered on the card, and the
+        cols kernel's per-stream workspace is shared safely. The host
+        reads results through synchronising copies."""
+        todo, phase_items, phase_index = prep
+        _t = time.monotonic()
+        states = phase_regions_batched(phase_items, cfg, device=device)
+        stage_add("phase", time.monotonic() - _t)
+        return todo, phase_index, states
+
+    # Pipelined waves: wave N+1's host prepare runs on one background
+    # thread and wave N+1's bucketed phasing on a second BEFORE wave N's
+    # finalize runs on the main thread, so the device never idles behind
+    # the assignment layer. Phases stay strictly serialized on a 1-worker
+    # pool, the finalize order is unchanged, and bucketing is composition-
+    # independent — byte-invariant. Steady state holds at most THREE waves'
+    # tensors (one finalizing, one phasing, one preparing; the wave_cells
+    # budget bounds each). LONGCALLR_WAVE_OVERLAP=0 restores the strictly
+    # serial prepare → phase → finalize loop.
+    overlap = (os.environ.get("LONGCALLR_WAVE_OVERLAP", "1") != "0"
+               and len(wave_spans) > 1)
+    ahead = ThreadPoolExecutor(max_workers=1) if overlap else None
+    phase_pool = ThreadPoolExecutor(max_workers=1) if overlap else None
+
+    try:
+        if overlap:
+            first_prep = ahead.submit(_prepare_wave, wave_spans[0]).result()
+            next_prep = ahead.submit(_prepare_wave, wave_spans[1])
+            phase_fut = phase_pool.submit(_phase_wave, first_prep)
+        for w, wave in enumerate(wave_spans):
+            if overlap:
+                todo, phase_index, states = phase_fut.result()
+                if w + 1 < len(wave_spans):
+                    prep = next_prep.result()
+                    next_prep = (ahead.submit(_prepare_wave, wave_spans[w + 2])
+                                 if w + 2 < len(wave_spans) else None)
+                    phase_fut = phase_pool.submit(_phase_wave, prep)
+            else:
+                todo, phase_index, states = _phase_wave(_prepare_wave(wave))
+            st_by_region = {phase_index[j]: states[j]
+                            for j in range(len(phase_index))}
+
+            def _finalize_one(i):
+                cands, frags, apply_ds = prepared[i]
+                return finalize_region(regions[i], cands, frags,
+                                       st_by_region.get(i), cfg, apply_ds)
+
+            # Deep waves fan finalize out over a thread pool: the assignment
+            # layer is [K,4I] f64 GEMMs that release the GIL. Small regions
+            # stay serial even inside a mixed wave — there the GIL-held
+            # numpy dispatch dominates and threads only add contention — so
+            # only the big regions go to the pool. Per-region results are
+            # independent (own rng stream, own table slot — assign.py's
+            # thread-local cache); results are stored in wave order. Host
+            # data only: nothing here touches the device.
+            big = {i for i in todo
+                   if prepared[i][1].n_frags * max(prepared[i][0].n, 1)
+                   >= finalize_mt_cells}
+            if len(big) >= 2 and cfg.threads > 1:
+                with ThreadPoolExecutor(
+                        max_workers=min(cfg.threads, len(big))) as fex:
+                    futs = {i: fex.submit(_finalize_one, i) for i in todo
+                            if i in big}
+                    for i in todo:
+                        results[i] = (futs[i].result() if i in big
+                                      else _finalize_one(i))
+                        prepared[i] = None
+            else:
+                for i in todo:
+                    results[i] = _finalize_one(i)
+                    prepared[i] = None
+            if on_wave is not None and todo:
+                on_wave([(i, results[i]) for i in todo])
+    finally:
+        if ahead is not None:
+            ahead.shutdown(wait=True, cancel_futures=True)
+        if phase_pool is not None:
+            phase_pool.shutdown(wait=True, cancel_futures=True)
+    return results

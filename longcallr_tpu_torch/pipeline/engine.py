@@ -4,10 +4,11 @@ region closure of the reference orchestrator
 (``longcallR/src/thread.rs:77-222``).
 
 Copied from ``longcallr_tpu/pipeline/engine.py`` (whose module imports jax
-through the candidate kernel and the optimizer): ``process_region`` and
-its prepare stages, ``import_external_candidates``, ``RegionResult`` and
-``stage_add``. The differences are the ``device`` argument and the torch
-candidate kernel and optimizer.
+through the candidate kernel and the optimizer): ``process_region``, its
+prepare stages and ``finalize_region`` (which the batched pipeline calls per
+region after a bucket has phased), ``import_external_candidates``,
+``RegionResult`` and ``stage_add``. The differences are the ``device``
+argument and the torch candidate kernel and optimizer.
 """
 
 from __future__ import annotations
@@ -36,6 +37,13 @@ from ..phasing.optimize import phase_region
 # concurrent region threads never lose increments
 STAGE_TOTALS: Dict[str, float] = defaultdict(float)
 _STAGE_LOCK = threading.Lock()
+
+
+# keys of STAGE_TOTALS that count events, not seconds: the bucket phasing's
+# refusals, exact recomputes and bucket census
+STAGE_COUNTS = frozenset((
+    "phase_fused_refused", "phase_blockflip_exact", "phase_safety_recompute",
+    "phase_buckets", "phase_enum_buckets", "phase_single_regions"))
 
 
 def stage_add(key: str, val: float) -> None:
@@ -128,9 +136,7 @@ def prepare_region(bam: BamFile, region: Region, ref_seq: np.ndarray,
                    exon_mask: Optional[np.ndarray] = None):
     """Pileup → candidates (on ``device``) → fragments. Returns
     (cands, frags, apply_ds)."""
-    _t = time.monotonic()
-    pileup = build_pileup(bam, region, ref_seq, cfg)
-    stage_add("pileup", time.monotonic() - _t)
+    pileup = prepare_region_pileup(bam, region, ref_seq, cfg)
     _t = time.monotonic()
     if input_candidates is not None:
         chr_cands = input_candidates.get(region.chr, {})
@@ -139,6 +145,24 @@ def prepare_region(bam: BamFile, region: Region, ref_seq: np.ndarray,
         cands = select_candidates(pileup, cfg, exon_mask=exon_mask,
                                   device=device)
     stage_add("candidates", time.monotonic() - _t)
+    frags, apply_ds = prepare_region_fragments(bam, region, cands, cfg)
+    return cands, frags, apply_ds
+
+
+def prepare_region_pileup(bam: BamFile, region: Region, ref_seq: np.ndarray,
+                          cfg: CallerConfig):
+    """Pileup stage alone (the batched pipeline runs candidates for a whole
+    wave of regions in one kernel call — ops/candidates.py
+    select_candidates_batched)."""
+    _t = time.monotonic()
+    pileup = build_pileup(bam, region, ref_seq, cfg)
+    stage_add("pileup", time.monotonic() - _t)
+    return pileup
+
+
+def prepare_region_fragments(bam: BamFile, region: Region, cands,
+                             cfg: CallerConfig):
+    """Fragment stage alone; returns (frags, apply_ds)."""
     _t = time.monotonic()
     frags = get_fragments(bam, region, cands, cfg)
     if cfg.somatic:
@@ -151,28 +175,20 @@ def prepare_region(bam: BamFile, region: Region, ref_seq: np.ndarray,
                 and frags.n_frags >= cfg.downsample_depth)
     if apply_ds:
         downsample_fragments(frags, cfg.downsample_depth, 2025)
-    return cands, frags, apply_ds
+    return frags, apply_ds
 
 
-def process_region(bam: BamFile, region: Region, ref_seq: np.ndarray,
-                   cfg: CallerConfig, device: torch.device,
-                   input_candidates: Optional[Dict[str, Dict[int, GenotypeAndQuality]]] = None,
-                   exon_mask: Optional[np.ndarray] = None) -> RegionResult:
-    """One region end-to-end (thread.rs:77-222)."""
-    cands, frags, apply_ds = prepare_region(bam, region, ref_seq, cfg, device,
-                                            input_candidates, exon_mask)
-
+def finalize_region(region: Region, cands, frags, st, cfg: CallerConfig,
+                    apply_ds: bool) -> RegionResult:
+    """Post-phasing passes: assignment, rescue, phase sets, records
+    (thread.rs:168-221). ``st`` is the region's final PhaseState (host
+    numpy), or None when there was nothing to phase. Host work only."""
     rng = np.random.default_rng(
         np.random.SeedSequence([cfg.seed, region.start & 0x7FFFFFFF, 7]))
-
-    if cands.n > 0 and frags.n_frags > 0:
-        _t = time.monotonic()
-        st = phase_region(frags, cands, cfg, seed=region.start,
-                          apply_downsampling=apply_ds, device=device)
-        stage_add("phase", time.monotonic() - _t)
-        frags.haplotag = np.sign(st.sigma).astype(np.int8)
-        cands.haplotype = np.sign(st.delta).astype(np.int8)
-        cands.genotype = st.eta.astype(np.int8)
+    if st is not None:
+        frags.haplotag = np.sign(np.asarray(st.sigma)).astype(np.int8)
+        cands.haplotype = np.sign(np.asarray(st.delta)).astype(np.int8)
+        cands.genotype = np.asarray(st.eta).astype(np.int8)
 
         _t = time.monotonic()
         ct = A.cell_tables_lazy(frags)
@@ -209,3 +225,19 @@ def process_region(bam: BamFile, region: Region, ref_seq: np.ndarray,
                         read_assignments=read_assignments,
                         phase_sets=phase_sets, n_fragments=frags.n_frags,
                         n_candidates=cands.n)
+
+
+def process_region(bam: BamFile, region: Region, ref_seq: np.ndarray,
+                   cfg: CallerConfig, device: torch.device,
+                   input_candidates: Optional[Dict[str, Dict[int, GenotypeAndQuality]]] = None,
+                   exon_mask: Optional[np.ndarray] = None) -> RegionResult:
+    """One region end-to-end (thread.rs:77-222)."""
+    cands, frags, apply_ds = prepare_region(bam, region, ref_seq, cfg, device,
+                                            input_candidates, exon_mask)
+    st = None
+    if cands.n > 0 and frags.n_frags > 0:
+        _t = time.monotonic()
+        st = phase_region(frags, cands, cfg, seed=region.start,
+                          apply_downsampling=apply_ds, device=device)
+        stage_add("phase", time.monotonic() - _t)
+    return finalize_region(region, cands, frags, st, cfg, apply_ds)

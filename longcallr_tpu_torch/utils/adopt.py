@@ -6,7 +6,11 @@ that compares the two packages builds an object with one and hands it to
 the other's function; ``adopt`` rebuilds such an object as the port's type
 of the same name, field by field (numpy arrays are shared, not copied). The
 device side has its own carriers: ``CompactCells.from_numpy`` and
-``PhaseState.from_numpy`` turn numpy arrays into tensors on a device.
+``PhaseState.from_numpy`` turn numpy arrays into tensors on a device, and
+``adopt_batch`` / ``adopt_state`` do the same for a whole bucket: a
+``BatchedRegions`` (``p, q, read_base, site_mask, conserved``) and a
+``PhaseState`` whose arrays carry the region axis, as numpy arrays or as
+anything ``numpy.asarray`` reads.
 
 Nothing of the JAX package is imported here: the source object is read
 through ``dataclasses.fields`` and matched by its class name.
@@ -16,6 +20,9 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any
+
+import numpy as np
+import torch
 
 from ..config import CallerConfig
 from ..tiles.pileup import PileupTensors
@@ -45,3 +52,23 @@ def adopt(obj: Any) -> Any:
             v = adopt(v)
         kw[n] = v
     return cls(**kw)
+
+
+def adopt_batch(batch: Any, device: torch.device):
+    """A bucket (any object with the fields of ``BatchedRegions``, arrays
+    of another framework included) as the port's ``BatchedRegions`` with
+    its tensors on ``device``."""
+    from ..parallel.mesh import BatchedRegions
+
+    return BatchedRegions.from_numpy(
+        *(np.asarray(getattr(batch, f)) for f in BatchedRegions._fields),
+        device=device)
+
+
+def adopt_state(st: Any, device: torch.device):
+    """A phase state (``sigma, delta, eta``, with or without leading batch
+    axes) as the port's ``PhaseState`` of float64 tensors on ``device``."""
+    from ..phasing.optimize import PhaseState
+
+    return PhaseState.from_numpy(np.asarray(st.sigma), np.asarray(st.delta),
+                                 np.asarray(st.eta), device=device)

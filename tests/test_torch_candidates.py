@@ -76,7 +76,8 @@ def test_select_candidates_matches_jax(tmp_path, with_exon_mask):
         em = np.zeros(pl.length, bool)
         em[500:4500] = True
     want = JC.select_candidates(pl, cfg, exon_mask=em)
-    got = TC.select_candidates(pl, cfg, exon_mask=em)
+    got = TC.select_candidates(pl, cfg, exon_mask=em,
+                               device=torch.device("cpu"))
     assert got.n == want.n > 0
     for f in want.__dataclass_fields__:
         a, b = getattr(got, f), getattr(want, f)

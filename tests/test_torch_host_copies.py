@@ -17,6 +17,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import simulate as jsim
 from longcallr_tpu import cli as jcli
@@ -539,7 +540,8 @@ def test_adopt(sim_bam, what):
         from longcallr_tpu_torch.ops.candidates import \
             select_candidates as tsel
         want = jsel(a, jconfig.preset("hifi-masseq"))
-        got = tsel(b, adopt(jconfig.preset("hifi-masseq")))
+        got = tsel(b, adopt(jconfig.preset("hifi-masseq")),
+                   device=torch.device("cpu"))
         assert np.array_equal(want.pos, got.pos) and want.n > 5
         assert np.array_equal(want.genotype, got.genotype)
     else:

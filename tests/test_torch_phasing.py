@@ -360,7 +360,8 @@ def _region(tmp_path, seed, n_het, pkg):
     bam = BamFile(path)
     region = Region(chr="chrS", start=1, end=len(ref) + 1)
     pl = build_pileup(bam, region, ref, cfg)
-    cands = select_candidates(pl, cfg)
+    cands = (select_candidates(pl, cfg) if pkg == "jax" else
+             select_candidates(pl, cfg, device=torch.device("cpu")))
     return cfg, cands, get_fragments(bam, region, cands, cfg)
 
 
@@ -373,7 +374,7 @@ def test_phase_region_matches_jax(tmp_path, n_het, path):
     assert (jc.n <= cfg.max_enum_snps) == (path == "enumeration")
     np.testing.assert_array_equal(tf.p, jf.p)
     want = JO.phase_region(jf, jc, cfg, seed=3)
-    got = TO.phase_region(tf, tc, cfg, seed=3)
+    got = TO.phase_region(tf, tc, cfg, seed=3, device=torch.device("cpu"))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, np.asarray(b))
 
@@ -383,7 +384,8 @@ def test_safety_net_reruns_in_f64(tmp_path, n_het, monkeypatch):
     """A split-mode region whose margin fails the bound is recomputed in f64
     on the same device and lands on the f64 result; the rerun is counted."""
     cfg, cands, frags = _region(tmp_path, 51 + n_het, n_het, "torch")
-    want = TO.phase_region(frags, cands, cfg, seed=3)
+    want = TO.phase_region(frags, cands, cfg, seed=3,
+                           device=torch.device("cpu"))
     monkeypatch.setattr(TO, "F32_SAFETY_TOL", np.inf)   # always trigger
     K0, I0 = frags.p.shape
     n0 = TO.N_F64_RERUNS

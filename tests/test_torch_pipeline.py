@@ -121,7 +121,7 @@ def test_port_never_imports_jax(tmp_path):
     assert "NOJAX" in res.stdout
 
 
-@pytest.mark.parametrize("flag", [["--batched"], ["--stream"], ["--resume"],
+@pytest.mark.parametrize("flag", [["--stream"], ["--resume"],
                                   ["--coordinator", "localhost:1",
                                    "--num-processes", "2",
                                    "--process-id", "0"]])
@@ -144,3 +144,32 @@ def test_resolve_device():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device("cuda")
+
+
+@pytest.mark.parametrize("entry", ["run", "phase_region", "select_candidates",
+                                   "select_candidates_batched",
+                                   "phase_regions_batched"])
+def test_entry_points_ask_for_cuda_when_no_device_is_given(tmp_path, entry):
+    """An entry point called without a device resolves to the CUDA device
+    and raises where there is none: nothing runs on the CPU unless the
+    caller asks for it."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves")
+    from longcallr_tpu_torch.ops.candidates import (select_candidates,
+                                                    select_candidates_batched)
+    from longcallr_tpu_torch.phasing.batch_driver import phase_regions_batched
+    from longcallr_tpu_torch.phasing.optimize import phase_region
+
+    cfg = preset("hifi-masseq")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "run":
+            bam, fa = _fresh_workload(tmp_path)
+            run(bam, fa, str(tmp_path / "nodev"), cfg)
+        elif entry == "phase_region":
+            phase_region(None, None, cfg, seed=1)
+        elif entry == "select_candidates":
+            select_candidates(None, cfg)
+        elif entry == "select_candidates_batched":
+            select_candidates_batched([], cfg)
+        else:
+            phase_regions_batched([], cfg)

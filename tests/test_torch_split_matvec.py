@@ -107,6 +107,28 @@ def test_cpu_calls_do_not_count_launches(rng):
     assert CK.LAUNCHES == before
 
 
+def test_launch_record_counts_and_shapes():
+    """A launch is recorded under (tables, K, I, members per table), and
+    reset_launches clears counts and shapes."""
+    saved = dict(CK.LAUNCHES), {k: set(v) for k, v in CK.LAUNCH_SHAPES.items()}
+    try:
+        CK.reset_launches()
+        assert CK.LAUNCHES == {"dual_matvec_rows": 0, "matvec_cols": 0}
+        assert all(not v for v in CK.LAUNCH_SHAPES.values())
+        CK._count("matvec_cols", torch.zeros(12, 64, 8), 16)
+        CK._count("matvec_cols", torch.zeros(12, 64, 8), 16)
+        CK._count("dual_matvec_rows", torch.zeros(64, 8), 16)
+        assert CK.LAUNCHES == {"dual_matvec_rows": 1, "matvec_cols": 2}
+        assert CK.LAUNCH_SHAPES == {"dual_matvec_rows": {(1, 64, 8, 16)},
+                                    "matvec_cols": {(12, 64, 8, 16)}}
+        CK.reset_launches()
+        assert all(not v for v in CK.LAUNCH_SHAPES.values())
+    finally:
+        CK.LAUNCHES.update(saved[0])
+        for k, v in saved[1].items():
+            CK.LAUNCH_SHAPES[k] = v
+
+
 @pytest.mark.parametrize("bad", ["dtype_split", "dtype_operand", "shape",
                                  "device"])
 def test_wrappers_reject_what_the_kernel_does_not_take(bad):
@@ -217,16 +239,17 @@ def test_batched_matvecs_match_jax_per_member(rng, shared):
 @pytest.mark.parametrize("case", ["strided_operand", "expanded_operand",
                                   "batch_of_one_table", "one_operand_many"])
 def test_thin_and_general_wrapper_paths_give_the_same_tensor(rng, case):
-    """Operands the kernels take as they are go the thin way (_usual);
-    views that need a copy or a broadcast go the general way. Both give
+    """Operands the kernels take as they are are handed on uncopied; views
+    that need a copy or a broadcast are made contiguous first. Both give
     the same tensor, bit for bit."""
     B, K, I = 4, 64, 16
     _, hi, lo = _split(rng, (K, I))
     th, tl = torch.from_numpy(hi), torch.from_numpy(lo)
     x = torch.from_numpy(rng.integers(-1, 2, size=(B, I, 2)).astype(np.float64))
     s = torch.from_numpy(rng.integers(-1, 2, size=(B, K)).astype(np.float64))
-    assert CK._usual(th, tl, x, 2) == (B, True)
-    assert CK._usual(th, tl, s[0], 1) == (1, False)
+    assert CK._operands(th, tl, x, 2) == (B, B, x, (B,))
+    assert CK._operands(th, tl, x, 2)[2] is x
+    assert CK._operands(th, tl, s[0], 1)[:2] == (1, 1)
     thin_r, thin_c = CK.dual_matvec_rows(th, tl, x), CK.matvec_cols(th, tl, s)
     if case == "strided_operand":
         x2 = torch.zeros(B, I, 4, dtype=torch.float64)[..., ::2]
@@ -248,7 +271,9 @@ def test_thin_and_general_wrapper_paths_give_the_same_tensor(rng, case):
         thin_r = CK.dual_matvec_rows(th, tl, x[0])[None].expand(B, K, 2)
         thin_c = CK.matvec_cols(th, tl, s[0])[None].expand(B, I)
         args = (hb, lb, x[0]), (hb, lb, s[0])
-    assert CK._usual(*args[0], 2) is None and CK._usual(*args[1], 1) is None
+    if case != "batch_of_one_table":
+        assert CK._operands(*args[0], 2)[2] is not args[0][2]
+        assert CK._operands(*args[1], 1)[2] is not args[1][2]
     assert torch.equal(CK.dual_matvec_rows(*args[0]), thin_r)
     assert torch.equal(CK.matvec_cols(*args[1]), thin_c)
 
@@ -305,3 +330,124 @@ def test_cols_plan_covers_the_table(B, K, I, aligned):
                                      (17, 32), (512, 32)])
 def test_rows_lanes(I, lanes):
     assert CK.rows_lanes(I) == lanes
+
+
+# --- members per table: a bucket of regions with C configs each -------------
+# Tables [B,K,I] with an operand [B,C,...]: member (b, c) reads table b. The
+# kernels take the members flat with the members per table; on the CPU the
+# plain versions take the same shapes. Each member is held against the JAX
+# kernels run on that member alone (Pallas in interpret mode within 1.5x of
+# its error; the einsum path to its f32 chunk bound).
+
+@pytest.mark.parametrize("B,C,K,I", [(4, 64, 512, 16), (3, 5, 96, 24),
+                                     (2, 1, 40, 7), (1, 6, 64, 12)])
+def test_members_per_table_match_jax_per_member(rng, B, C, K, I):
+    _, hi, lo = _split(rng, (B, K, I))
+    x = rng.integers(-1, 2, size=(B, C, I, 2)).astype(np.float64)
+    s = rng.integers(-1, 2, size=(B, C, K)).astype(np.float64)
+    s[..., ::5] = 0.0
+    th, tl = torch.from_numpy(hi), torch.from_numpy(lo)
+    rows = CK.dual_matvec_rows(th, tl, torch.from_numpy(x)).numpy()
+    cols = CK.matvec_cols(th, tl, torch.from_numpy(s)).numpy()
+    assert rows.shape == (B, C, K, 2) and cols.shape == (B, C, I)
+    for b in range(B):
+        dp = hi[b].astype(np.float64) + lo[b].astype(np.float64)
+        dp2 = jnp.stack([jnp.asarray(hi[b]), jnp.asarray(lo[b])])
+        for c in range(0, C, max(1, C // 3)):
+            want_r, want_c = dp @ x[b, c], s[b, c] @ dp
+            assert _rel(rows[b, c], want_r) <= EXACT_RTOL
+            assert _rel(cols[b, c], want_c) <= EXACT_RTOL
+            np.testing.assert_allclose(
+                rows[b, c],
+                np.asarray(JKF._matvec_rows(dp2, jnp.asarray(x[b, c]))),
+                rtol=0, atol=2e-4 * (np.abs(dp).sum(axis=1).max() + 1))
+            np.testing.assert_allclose(
+                cols[b, c],
+                np.asarray(JKF._matvec_cols(dp2, jnp.asarray(s[b, c]))),
+                rtol=0, atol=2e-4 * (np.abs(dp).sum(axis=0).max() + 1))
+    # one member through the Pallas kernels (interpret mode)
+    dp = hi[0].astype(np.float64) + lo[0].astype(np.float64)
+    pal_r = PK.dual_matvec_rows(jnp.asarray(hi[0]), jnp.asarray(lo[0]),
+                                jnp.asarray(x[0, 0]), interpret=True)
+    pal_c = PK.matvec_cols(jnp.asarray(hi[0]), jnp.asarray(lo[0]),
+                           jnp.asarray(s[0, 0]), interpret=True)
+    assert _rel(rows[0, 0], dp @ x[0, 0]) <= \
+        max(_rel(pal_r, dp @ x[0, 0]), 1e-9) * 1.5
+    assert _rel(cols[0, 0], s[0, 0] @ dp) <= \
+        max(_rel(pal_c, s[0, 0] @ dp), 1e-9) * 1.5
+
+
+@pytest.mark.parametrize("which", ["wrapper", "plain"])
+def test_members_per_table_argument_names_a_flat_operand(rng, which):
+    """A flat operand [B·g, ...] with members_per_table=g is the operand
+    [B, g, ...]: the same numbers, flat."""
+    B, g, K, I = 3, 4, 48, 12
+    _, hi, lo = _split(rng, (B, K, I))
+    th, tl = torch.from_numpy(hi), torch.from_numpy(lo)
+    x = torch.from_numpy(rng.integers(-1, 2, size=(B, g, I, 2)).astype(np.float64))
+    s = torch.from_numpy(rng.integers(-1, 2, size=(B, g, K)).astype(np.float64))
+    rows_fn, cols_fn = ((CK.dual_matvec_rows, CK.matvec_cols)
+                        if which == "wrapper" else
+                        (CK.dual_matvec_rows_plain, CK.matvec_cols_plain))
+    rows = rows_fn(th, tl, x.reshape(B * g, I, 2), members_per_table=g)
+    cols = cols_fn(th, tl, s.reshape(B * g, K), members_per_table=g)
+    assert rows.shape == (B * g, K, 2) and cols.shape == (B * g, I)
+    assert torch.equal(rows.reshape(B, g, K, 2), rows_fn(th, tl, x))
+    assert torch.equal(cols.reshape(B, g, I), cols_fn(th, tl, s))
+    # g = 1 and g = all are the two older forms
+    assert torch.equal(rows_fn(th, tl, x[:, 0].contiguous(),
+                               members_per_table=1), rows_fn(th, tl, x[:, 0]))
+    assert torch.equal(cols_fn(th[:1], tl[:1], s[0].contiguous(),
+                               members_per_table=g), cols_fn(th[0], tl[0], s[0]))
+
+
+def test_operands_report_members_and_members_per_table():
+    hi, lo = torch.zeros(3, 16, 8), torch.zeros(3, 16, 8)
+    f64 = torch.float64
+    x = torch.zeros(3, 5, 8, 2, dtype=f64)
+    assert CK._operands(hi, lo, x, 2)[:2] == (15, 5)
+    assert CK._operands(hi, lo, x, 2)[3] == (3, 5)
+    assert CK._operands(hi, lo, x[:, 0].contiguous(), 2)[:2] == (3, 1)
+    assert CK._operands(hi[0], lo[0], x[0], 2)[:2] == (5, 5)
+    assert CK._operands(hi[:1], lo[:1], x[0], 2)[:2] == (5, 5)
+    assert CK._operands(hi, lo, torch.zeros(16, dtype=f64), 1)[:2] == (3, 1)
+    assert CK._operands(hi, lo, torch.zeros(6, 16, dtype=f64), 1,
+                        members_per_table=2)[:2] == (6, 2)
+
+
+@pytest.mark.parametrize("bad", ["zero", "not_a_multiple", "with_two_axes",
+                                 "tables_mismatch", "three_axes",
+                                 "two_axes_one_table"])
+def test_members_per_table_rejects_what_does_not_fit(bad):
+    hi, lo = torch.zeros(3, 16, 8), torch.zeros(3, 16, 8)
+    s = torch.zeros(6, 16, dtype=torch.float64)
+    kw = {"members_per_table": 2}
+    if bad == "zero":
+        kw = {"members_per_table": 0}
+    elif bad == "not_a_multiple":
+        s = torch.zeros(7, 16, dtype=torch.float64)
+    elif bad == "with_two_axes":
+        s = torch.zeros(3, 2, 16, dtype=torch.float64)
+    elif bad == "tables_mismatch":
+        s, kw = torch.zeros(2, 4, 16, dtype=torch.float64), {}
+    elif bad == "three_axes":
+        s, kw = torch.zeros(3, 2, 2, 16, dtype=torch.float64), {}
+    else:
+        hi, lo, kw = hi[0], lo[0], {}
+        s = torch.zeros(3, 2, 16, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        CK.matvec_cols(hi, lo, s, **kw)
+
+
+def test_cols_plan_for_a_deep_bucket():
+    """Four deep tables with one member each: the grid still lands near two
+    blocks per SM, and the workspace the wrapper asks for covers every
+    member's partials and tickets."""
+    vec, tx_log2, kc, ncb, nch = CK.cols_plan(4, 4096, 512, True, 132)
+    assert (vec, kc, ncb, nch) == (4, 512, 8, 8)
+    blocks = 4 * ncb * nch
+    assert 1.5 <= blocks / 132 <= 2.5
+    # what matvec_cols hands _workspace: B·nch·I partials, B·ncb tickets
+    assert (4 * nch * 512, 4 * ncb) == (16384, 32)
+    # an enumeration bucket: 256 members over 4 small tables, K is not cut
+    assert CK.cols_plan(256, 512, 16, True, 132)[3:] == (1, 1)
