@@ -14,14 +14,21 @@ package) and fails on the first check that does not hold:
                (I not a multiple of 4; a table that is not 16-byte
                aligned); then 4 host threads call matvec_cols at once, two
                on the default stream and two on streams of their own.
-               At the main-path shapes — deep (1, 4096, 512), enumeration
-               (64, 512, 16, one shared Dp), a deep bucket (4, 4096, 512:
-               four tables, one member each), the bucket of a default wave
-               of the deep input (2, 4096, 512), an enumeration bucket
-               (4 tables of (512, 16), 64 members per table) and the two
-               shapes that the enumeration workload of phase 6 launches (12
-               tables of (64, 8) with 16 members each; 16 members on one
-               (64, 8) table) — each kernel
+               dual_matvec_rows also member by member: a member's result
+               among the g members of its table must equal its result alone
+               on that table bit for bit. One checked shape is 64 tables of
+               (8, 16) with 1,024 members each, 65,536 members, more than
+               the second or third dimension of a grid holds (not timed).
+               At the main-path shapes — deep (1, 4096, 512), a deep bucket
+               (4, 4096, 512: four tables, one member each), the bucket of
+               a default wave of the deep input (2, 4096, 512), and the
+               enumeration shapes that the workloads of phase 6 launch: a
+               6-SNP bucket (4 tables of (512, 8), 64 members each) and one
+               such region (1 table, 64 members), a 10-SNP bucket as the
+               batched path chunks it (4 tables of (512, 16), 512 members each)
+               and one such region (1 table, 1,024 members), 12 tables of
+               (64, 8) with 16 members each and 16 members on one (64, 8)
+               table — each kernel
                is timed beside its plain version and
                the one library call that computes the same function
                (torch.matmul / torch.bmm on the f64 tables, the widening
@@ -33,7 +40,10 @@ package) and fails on the first check that does not hold:
                The bound is the larger of bytes / 3.35 TB/s (each input
                read once, rows with σ = 0 not counted, the result written
                once) and f64 operations / 33.5 TFLOP/s (half the card's
-               float32 rate outside the tensor cores);
+               float32 rate outside the tensor cores). The share of that
+               bound is stated for the cold time; for the warm time only
+               where those bytes exceed the 50 MB L2 (else the warm time is
+               a time "in L2" and has no share of a device-memory bound);
   3. tables  — the split-table build on a bucket of four deep regions
                against the build of each region alone;
   4. goldens — the four simulated preset workloads of the JAX package's
@@ -59,7 +69,11 @@ package) and fails on the first check that does not hold:
                buckets (regions x configs on the members-per-table form of
                the kernels), batched and --no-batched: equal, and both once
                more in forced split mode, where no region is recomputed in
-               f64: equal. Every run that the kernel summary counts must
+               f64: equal; (i) four loci of 6 SNPs and four of 10 SNPs at
+               432 and 510 reads each (tables of (512, 8) with 64 configs,
+               of (512, 16) with 1,024), run the four ways of (g): equal,
+               with at least one enumeration bucket and both kernels
+               launched. Every run that the kernel summary counts must
                have launched the kernels only at shapes that phase 2
                checked;
   7. split vs f64 — (c) the deep input with LONGCALLR_F32_KERNELS=0 (f64
@@ -75,7 +89,8 @@ holds the same numbers for every timed shape, among them ``deep_bucket``,
 the four deep regions in one wave; ``launches`` counts the default batched
 deep run, ``launches_per_region`` the per-region one,
 ``launches_one_wave`` the run of (f), ``launches_enum`` and
-``launches_enum_per_region`` the two runs of (g); each timed shape lists
+``launches_enum_per_region`` the two runs of (g), ``launches_enum_deep`` and
+``launches_enum_deep_per_region`` the two of (i); each timed shape lists
 under ``launched_by`` the runs that launched the kernel there), the card's
 name and power limit (nvidia-smi), and last the result line.
 """
@@ -103,6 +118,7 @@ N_TIMED = 50
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F64_FLOPS = 67e12 / 2
 # written between two calls to push the table out of the 50 MB L2
+L2_BYTES = 50e6
 FLUSH_BYTES = 256 << 20
 
 # names of the kernels that flush the L2 between two timed calls (zero_ and
@@ -113,25 +129,44 @@ _FLUSH_KERNELS = ("FillFunctor", "Memset", "at::native::reduce_kernel")
 # (B, K, I, shared Dp[, members per table]): B operands over one shared
 # table, or B tables with one member each, or B tables with C members each
 DEEP = (1, 4096, 512, True)
-ENUM = (64, 512, 16, True)
 DEEP_BUCKET = (4, 4096, 512, False)
 DEEP_WAVE = (2, 4096, 512, False)
-ENUM_BUCKET = (4, 512, 16, False, 64)
+# what the enumeration workload of phase_batched (i) launches: the bucket of
+# its four 6-SNP regions (I = 8, 64 configs) and one such region on the
+# per-region loop; the bucket of its four 10-SNP regions as the batched path
+# chunks the 1,024 configs (512 a launch) and one such region (all 1,024)
+ENUM6_BUCKET = (4, 512, 8, False, 64)
+ENUM6_REGION = (64, 512, 8, True)
+ENUM10_BUCKET = (4, 512, 16, False, 512)
+ENUM10_REGION = (1024, 512, 16, True)
 # what the enumeration workload of phase_batched (g) launches: its bucket of
 # 12 regions x 16 configs, and one region's 16 configs on the per-region loop
 ENUM_RUN_BUCKET = (12, 64, 8, False, 16)
 ENUM_RUN_REGION = (16, 64, 8, True)
-TIMED = {DEEP: "deep", ENUM: "enum", DEEP_BUCKET: "deep_bucket",
-         DEEP_WAVE: "deep_wave", ENUM_BUCKET: "enum_bucket",
+# 64 regions of 10 SNPs with at most 8 reads each in one bucket: 65,536
+# members in one launch (checked, not timed)
+ENUM_LIMIT = (64, 8, 16, False, 1024)
+TIMED = {DEEP: "deep", DEEP_BUCKET: "deep_bucket", DEEP_WAVE: "deep_wave",
+         ENUM6_BUCKET: "enum6_bucket", ENUM6_REGION: "enum6_region",
+         ENUM10_BUCKET: "enum10_bucket", ENUM10_REGION: "enum10_region",
          ENUM_RUN_BUCKET: "enum_run_bucket",
          ENUM_RUN_REGION: "enum_run_region"}
 # every shape phase_kernels holds against the plain versions: the main-path
 # shapes first, then unaligned ones
-CHECKED_SHAPES = [DEEP, ENUM, DEEP_BUCKET, DEEP_WAVE, ENUM_BUCKET,
-                  ENUM_RUN_BUCKET, ENUM_RUN_REGION,
+CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, ENUM6_BUCKET, ENUM6_REGION,
+                  ENUM10_BUCKET, ENUM10_REGION, ENUM_RUN_BUCKET,
+                  ENUM_RUN_REGION, ENUM_LIMIT,
                   (1, 37, 300, False), (1, 1025, 129, False),
                   (1, 513, 700, False), (1, 4096, 510, False),
-                  (5, 300, 64, False), (3, 200, 24, False, 5)]
+                  (5, 300, 64, False), (3, 200, 24, False, 5),
+                  # rows in registers, I below the register count, with and
+                  # without 16-byte loads; 32 cells a thread
+                  (7, 100, 12, False, 3), (3, 50, 5, False, 9),
+                  (2, 300, 32, False, 6), (5, 64, 30, True),
+                  # a warp per row with more than one member: rows in
+                  # shared memory (under and over 48 KB), and too wide for it
+                  (2, 40, 600, False, 70), (2, 24, 2000, False, 300),
+                  (140, 8, 4000, True), (2, 24, 30000, False, 3)]
 KERNEL_NAMES = ("dual_matvec_rows", "matvec_cols")
 
 
@@ -252,19 +287,23 @@ def _device_ms(fn, flush=None, n: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            if flush is not None:
-                flush.zero_()       # written, then read back: the L2 ends
-                flush.sum()         # up full of lines it can drop at once
-            fn()
-        torch.cuda.synchronize()
-    # kernel rows only: an operator's row repeats its kernels' device time
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not (flush is not None
-                            and any(w in e.key for w in _FLUSH_KERNELS)))
+    total_us = 0.0
+    for attempt in range(6):        # a profile now and then traces no kernel
+        time.sleep(0.2 * attempt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if flush is not None:
+                    flush.zero_()   # written, then read back: the L2 ends
+                    flush.sum()     # up full of lines it can drop at once
+                fn()
+            torch.cuda.synchronize()
+        # kernel rows only
+        total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and not (flush is not None
+                                and any(w in e.key for w in _FLUSH_KERNELS)))
+        if total_us > 0:
+            break
     if not total_us > 0:
         print("chip_smoke: torch.profiler traced no kernel; device times "
               "are taken between CUDA events", file=sys.stderr)
@@ -340,9 +379,14 @@ def _library_call(name, hi, lo, op):
     dpd = hi.double() + lo.double()
     same = lambda r: r
     if dpd.dim() == 2:
-        if name == "dual_matvec_rows":
+        if name == "matvec_cols":
+            return (lambda: torch.matmul(op, dpd)), same
+        if op.dim() == 2:
             return (lambda: torch.matmul(dpd, op)), same
-        return (lambda: torch.matmul(op, dpd)), same
+        K, I = dpd.shape                        # members side by side
+        xr = op.permute(1, 0, 2).reshape(I, -1).contiguous()
+        return ((lambda: torch.matmul(dpd, xr)),
+                lambda r: r.reshape(K, -1, 2).permute(1, 0, 2))
     B, K, I = dpd.shape
     if name == "matvec_cols":
         if op.dim() == 3:                       # [B,C,K] @ [B,K,I]
@@ -386,9 +430,34 @@ def _time_device(name, kern, plain, hi, lo, op, flush) -> dict:
          "library_cold_ms": _device_ms(lib, flush),
          "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
          "bound_f64_operations": flops}
-    t["share_of_bound"] = bound_ms / t["ms"]
+    # a working set that fits the L2 is served from there when warm: its
+    # warm time has no share of a device-memory bound
+    t["warm_in_l2"] = nbytes <= L2_BYTES
+    t["share_of_bound"] = None if t["warm_in_l2"] else bound_ms / t["ms"]
     t["share_of_bound_cold"] = bound_ms / t["cold_ms"]
     return t
+
+
+def _members_alone(row, kern, hi, lo, x) -> int:
+    """dual_matvec_rows: a member among the g members of its table against
+    the same member alone on that table, bit for bit, for members at both
+    ends of a table and of the batch. Returns the members compared."""
+    both = kern(hi, lo, x)
+    if hi.dim() == 2:                       # one table, members [B, I, 2]
+        pick = sorted({(0, m) for m in (0, 1, x.shape[0] // 2,
+                                        x.shape[0] - 1)})
+        alone = lambda t, m: (kern(hi, lo, x[m]), both[m])
+    else:                                   # [B, C, I, 2] over [B, K, I]
+        B, C = x.shape[:2]
+        pick = sorted({(t, m) for t in (0, B // 2, B - 1)
+                       for m in (0, C // 2, C - 1)})
+        alone = lambda t, m: (kern(hi[t], lo[t], x[t, m]), both[t, m])
+    for t, m in pick:
+        one, among = alone(t, m)
+        if not torch.equal(one, among):
+            raise AssertionError(f"dual_matvec_rows {row}: member {m} of "
+                                 f"table {t} differs from its result alone")
+    return len(pick)
 
 
 def _threads_check(CK, rng, dev) -> dict:
@@ -478,6 +547,9 @@ def phase_kernels(card: str, dev):
                 row[name].update(_time_host(name, kern, plain, hi, lo, op))
                 stats[name][TIMED[shape]] = row[name]
                 timed.append((name, row[name], hi, lo, op))
+        if C is not None or (shared and B > 1):
+            row["members_equal_alone"] = _members_alone(
+                row, kerns["dual_matvec_rows"][0], hi, lo, x)
         if C is not None:
             # the same members named flat, with the wrapper's argument
             for name, op, nd in (("dual_matvec_rows", x, 2),
@@ -726,6 +798,69 @@ def _forced_split():
         O.USE_F32_KERNELS = saved
 
 
+def _enum_workload(tmp: str, tag: str, label: str, contigs, seed: int):
+    """An enumeration workload four ways: batched and --no-batched, as the
+    caller resolves the mode and in forced split mode (where no region is
+    recomputed in f64, so the bytes are those of the kernels'
+    members-per-table form). All four must write the same bytes, at least
+    one enumeration bucket must form, and both kernels must be launched, at
+    shapes that phase_kernels checked. Returns (the result for the phase
+    line, [(launches, launch shapes) batched, the same per region])."""
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+
+    ebam = os.path.join(tmp, f"{label}.bam")
+    efa = os.path.join(tmp, f"{label}.fa")
+    eparams = make_genome_workload(ebam, efa, contigs=contigs, seed=seed)
+    np_, nout, nlaunch, nwall = _cli_run(tmp, f"{label}_batched", ebam, efa)
+    nshapes = _launched_shapes(f"{tag} enumeration workload, batched")
+    np2, nout2, nlaunch2, nwall2 = _cli_run(tmp, f"{label}_per_region", ebam,
+                                            efa, extra=["--no-batched"])
+    nshapes2 = _launched_shapes(f"{tag} enumeration workload, per-region loop")
+    ncensus = _census(nout.stage_seconds)
+    if ncensus["phase_enum_buckets"] < 1:
+        raise AssertionError(f"{tag} no enumeration bucket: {ncensus}")
+    for name in KERNEL_NAMES:
+        if nlaunch[name] <= 0 or nlaunch2[name] <= 0:
+            raise AssertionError(f"{tag} kernel {name} was not launched")
+    _must_equal(f"{tag} enumeration workload, batched vs --no-batched",
+                _payloads(np_), _payloads(np2))
+    with _forced_split():
+        sp, sout, slaunch, _ = _cli_run(tmp, f"{label}_batched_split", ebam,
+                                        efa)
+        sshapes = _launched_shapes(f"{tag} forced split, batched")
+        sp2, sout2, slaunch2, _ = _cli_run(tmp, f"{label}_per_region_split",
+                                           ebam, efa, extra=["--no-batched"])
+        _launched_shapes(f"{tag} forced split, per-region loop")
+    scensus = _census(sout.stage_seconds)
+    if (scensus["phase_enum_buckets"] < 1 or scensus["phase_safety_recompute"]
+            or sout.n_f64_reruns or sout2.n_f64_reruns):
+        raise AssertionError(f"{tag} forced split mode recomputed in f64 or "
+                             f"made no enumeration bucket: {scensus}, "
+                             f"{sout.n_f64_reruns}, {sout2.n_f64_reruns}")
+    for name in KERNEL_NAMES:
+        if slaunch[name] <= 0 or slaunch2[name] <= 0:
+            raise AssertionError(f"{tag} forced split: {name} not launched")
+    _must_equal(f"{tag} forced split mode, batched vs --no-batched",
+                _payloads(sp), _payloads(sp2))
+    res = {
+        "reads": eparams["n_reads"], "regions": nout.n_regions,
+        "records": nout.n_records, "equal": True, "census": ncensus,
+        "batched": {"wall_seconds": nwall, "launches": nlaunch,
+                    "launch_shapes": nshapes,
+                    "region_phase": nout.stage_seconds.get("region_phase")},
+        "per_region": {"wall_seconds": nwall2, "launches": nlaunch2,
+                       "launch_shapes": nshapes2,
+                       "region_phase":
+                           nout2.stage_seconds.get("region_phase")},
+        "forced_split": {"equal": True, "census": scensus,
+                         "launches": slaunch, "launch_shapes": sshapes,
+                         "launches_per_region": slaunch2,
+                         "f64_reruns": sout.n_f64_reruns,
+                         "equal_to_default_mode":
+                             _payloads(sp) == _payloads(np_)}}
+    return res, [(nlaunch, nshapes), (nlaunch2, nshapes2)]
+
+
 def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                   n_reads: int):
     """The batched pipeline on the card: (a) the deep input with no
@@ -733,10 +868,10 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     (d) the genome workload both ways; (e) the deep input in >= 3 waves
     with the write overlap on; (f) the deep input as one wave, with the
     peak of the device memory; (h) the same with the finalize fan-out on;
-    (g) an enumeration workload both ways, as the caller resolves the mode
-    and in forced split mode. After each run whose launches the kernel
-    summary reports, the shapes of those launches must be shapes that
-    phase_kernels checked. Returns (launch counts, launch shapes) by run."""
+    (g) and (i) two enumeration workloads (``_enum_workload``). After each
+    run whose launches the kernel summary reports, the shapes of those
+    launches must be shapes that phase_kernels checked. Returns (launch
+    counts, launch shapes) by run."""
     from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
 
     # (a) AUTO resolves to the batched pipeline for the deep input's regions
@@ -833,61 +968,25 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                                       "equal": True}
 
     # (g) twelve loci of four SNPs: enumeration buckets, regions x configs
-    ebam, efa = os.path.join(tmp, "enum.bam"), os.path.join(tmp, "enum.fa")
-    eparams = make_genome_workload(
-        ebam, efa, contigs=[(f"chrE{c}", [(4_000, 40, 900)] * 4)
-                            for c in range(3)], seed=20_261_016)
-    np_, nout, nlaunch, nwall = _cli_run(tmp, "enum_batched", ebam, efa)
-    nshapes = _launched_shapes("(g) enumeration workload, batched")
-    np2, nout2, nlaunch2, nwall2 = _cli_run(tmp, "enum_per_region", ebam, efa,
-                                            extra=["--no-batched"])
-    nshapes2 = _launched_shapes("(g) enumeration workload, per-region loop")
-    ncensus = _census(nout.stage_seconds)
-    if ncensus["phase_enum_buckets"] < 1:
-        raise AssertionError(f"(g) no enumeration bucket: {ncensus}")
-    for name in KERNEL_NAMES:
-        if nlaunch[name] <= 0 or nlaunch2[name] <= 0:
-            raise AssertionError(f"(g) kernel {name} was not launched")
-    _must_equal("(g) enumeration workload, batched vs --no-batched",
-                _payloads(np_), _payloads(np2))
-    # once more in forced split mode: no member is recomputed in f64, so
-    # the bytes are those of the kernels' members-per-table form
-    with _forced_split():
-        sp, sout, slaunch, _ = _cli_run(tmp, "enum_batched_split", ebam, efa)
-        sshapes = _launched_shapes("(g) forced split, batched")
-        sp2, sout2, slaunch2, _ = _cli_run(tmp, "enum_per_region_split", ebam,
-                                           efa, extra=["--no-batched"])
-    scensus = _census(sout.stage_seconds)
-    if (scensus["phase_enum_buckets"] < 1 or scensus["phase_safety_recompute"]
-            or sout.n_f64_reruns or sout2.n_f64_reruns):
-        raise AssertionError(f"(g) forced split mode recomputed in f64 or "
-                             f"made no enumeration bucket: {scensus}, "
-                             f"{sout.n_f64_reruns}, {sout2.n_f64_reruns}")
-    for name in KERNEL_NAMES:
-        if slaunch[name] <= 0 or slaunch2[name] <= 0:
-            raise AssertionError(f"(g) forced split: {name} not launched")
-    _must_equal("(g) forced split mode, batched vs --no-batched",
-                _payloads(sp), _payloads(sp2))
-    res["g_enum"] = {
-        "reads": eparams["n_reads"], "regions": nout.n_regions,
-        "records": nout.n_records, "equal": True, "census": ncensus,
-        "batched": {"wall_seconds": nwall, "launches": nlaunch,
-                    "launch_shapes": nshapes,
-                    "region_phase": nout.stage_seconds.get("region_phase")},
-        "per_region": {"wall_seconds": nwall2, "launches": nlaunch2,
-                       "launch_shapes": nshapes2,
-                       "region_phase":
-                           nout2.stage_seconds.get("region_phase")},
-        "forced_split": {"equal": True, "census": scensus,
-                         "launches": slaunch, "launch_shapes": sshapes,
-                         "launches_per_region": slaunch2,
-                         "f64_reruns": sout.n_f64_reruns,
-                         "equal_to_default_mode":
-                             _payloads(sp) == _payloads(np_)}}
+    res["g_enum"], enum_runs = _enum_workload(
+        tmp, "(g)", "enum",
+        [(f"chrE{c}", [(4_000, 40, 900)] * 4) for c in range(3)], 20_261_016)
+    # (i) four loci of 6 SNPs and four of 10 SNPs, 432 and 510 reads each:
+    # tables of (512, 8) with 64 configs and of (512, 16) with 1,024
+    res["i_enum_deep"], enum_deep_runs = _enum_workload(
+        tmp, "(i)", "enum_deep",
+        [("chrF0", [(5_400, 240, 900)] * 4),
+         ("chrF1", [(9_000, 170, 900)] * 4)], 20_261_017)
+    for shape in (ENUM6_BUCKET, ENUM10_BUCKET):
+        if list(_launch_key(shape)) not in enum_deep_runs[0][1][
+                "dual_matvec_rows"]:
+            raise AssertionError(f"(i) the batched run did not launch at "
+                                 f"{_launch_key(shape)}")
     _emit("batched", card, **res)
     return {"batched": (launches, shapes),
-            "one_wave": (flaunch, fshapes), "enum": (nlaunch, nshapes),
-            "enum_per_region": (nlaunch2, nshapes2)}
+            "one_wave": (flaunch, fshapes), "enum": enum_runs[0],
+            "enum_per_region": enum_runs[1], "enum_deep": enum_deep_runs[0],
+            "enum_deep_per_region": enum_deep_runs[1]}
 
 
 def phase_split_vs_f64(card: str, tmp: str, bam: str, fa: str,
@@ -961,7 +1060,7 @@ def main() -> int:
         "matvec_cols": "longcallr_tpu/phasing/pallas_kernels.py:230",
     }
     keep = lambda d: {f: d[f] for f in d if f.endswith("ms")
-                      or f.startswith(("bound", "share"))}
+                      or f.startswith(("bound", "share", "warm"))}
     shape_of = {label: list(_launch_key(shape))
                 for shape, label in TIMED.items()}
     kernels = []

@@ -57,7 +57,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.split_dual_matvec_rows.restype = i
     lib.split_dual_matvec_rows.argtypes = [vp, vp, i, vp, vp, i, i, i, i, i,
-                                           vp]
+                                           i, i, i, vp]
     lib.split_matvec_cols.restype = i
     lib.split_matvec_cols.argtypes = [vp, vp, i, vp, vp, vp, vp, i, i, i, i,
                                       i, i, i, vp]

@@ -20,6 +20,20 @@ on a CPU tensor it takes the plain version, ``(hi.double() + lo.double())``
 contracted in f64. The kernel accumulates in f64, so it agrees with the
 plain version up to summation order.
 
+``dual_matvec_rows`` reads each table once per launch, whatever the members
+per table: a block owns a tile of rows of one table, keeps those cells on
+the SM (I <= 32: a whole row per thread in registers, widened to f64 once;
+wider rows: one warp per row, its cells in shared memory when the block
+serves more than one member) and walks the members of that table, whose x
+it stages in shared memory. The members are walked inside the block, so
+their number is not bound by the 65,535 of the grid's second and third
+dimension: the second holds the chunks a table's members are cut into, at
+most a few per SM, the third the tables (and the batch of ``matvec_cols``),
+which go in as many launches as that takes, inside the C entry points.
+``rows_plan`` picks the block's shape from (tables, K, I, members per
+table). The order of a member's sum depends on I alone, so a member's
+result among g members of a table equals its result alone, bit for bit.
+
 A call costs little beside its kernel: dtype, shape, device and contiguity
 are checked, but contiguous operands are not copied, no device context is
 entered (the C entry point selects the device) and the only allocation is
@@ -65,7 +79,19 @@ COLS_BLOCKS_PER_SM = 2
 # cut into K chunks: ticket and combine cost about 2.3 µs on an H100, as
 # long as one SM takes to stream some 128 KiB
 COLS_SPLIT_MIN_BYTES = 128 << 10
-# CUDA's limit on the grid's second and third dimension
+# the rows kernel's block: at most 256 threads (log2: 8), row threads by
+# member ways; one thread keeps a row of up to 32 cells, wider rows get a
+# warp each, 8 a block (csrc/split_matvec.cu)
+ROWS_THREADS_LOG2 = 8
+ROWS_WALK_MAX_I = 32
+ROWS_LANE_ROWS = 8
+# blocks per SM the rows grid aims for when it cuts a table's members into
+# chunks: on an H100 one block per SM was best or within 10 % of it at
+# every enumeration shape (experiments/torch_rows_variants.py); finer chunks
+# read the table more often, coarser ones leave SMs idle
+ROWS_BLOCKS_PER_SM = 1
+# CUDA's limit on the grid's second and third dimension (the cols kernel's K
+# chunks lie on the second)
 _GRID_YZ_MAX = 65535
 
 
@@ -187,11 +213,31 @@ def _ceil_log2(n: int) -> int:
     return max(0, (n - 1).bit_length())
 
 
-def rows_lanes(I: int) -> int:
-    """Lanes that stride one row in the rows kernel: 32 for wide tables,
-    fewer (down to 4) when I is small, so that a warp covers several rows
-    and no lane idles."""
-    return min(32, max(4, 1 << _ceil_log2(I)))
+@functools.lru_cache(maxsize=4096)
+def rows_plan(tables: int, K: int, I: int, g: int, n_sm: int
+              ) -> Tuple[int, int, int]:
+    """Launch shape of the rows kernel for one call: (log2 of the row
+    threads of a block, log2 of its member ways, members of one table that
+    a block walks). A row of up to ROWS_WALK_MAX_I cells is one thread's:
+    the block is as many row threads as K needs (8 to 256), and the threads
+    left of 256 are ways that take every ways-th member; wider rows get a
+    warp each, ROWS_LANE_ROWS a block, and one way. A table's g members are
+    cut into chunks, a block each, until the grid has about
+    ROWS_BLOCKS_PER_SM blocks for each of the card's ``n_sm`` SMs (each
+    chunk reads the block's rows of the table again), every way with at
+    least one member."""
+    if I <= ROWS_WALK_MAX_I:
+        rt_log2 = min(ROWS_THREADS_LOG2, max(3, _ceil_log2(K)))
+        ways_log2 = min(ROWS_THREADS_LOG2 - rt_log2, _ceil_log2(g))
+    else:
+        rt_log2, ways_log2 = _ceil_log2(ROWS_LANE_ROWS), 0
+    ways = 1 << ways_log2
+    row_tiles = -(-K // (1 << rt_log2))
+    chunks_wanted = max(1, ROWS_BLOCKS_PER_SM * n_sm
+                        // max(1, tables * row_tiles))
+    mb = -(-g // chunks_wanted)
+    mb = min(g, ways * -(-mb // ways))           # whole turns of the ways
+    return rt_log2, ways_log2, mb
 
 
 @functools.lru_cache(maxsize=4096)
@@ -282,14 +328,17 @@ def dual_matvec_rows(hi: torch.Tensor, lo: torch.Tensor, x: torch.Tensor,
         return dual_matvec_rows_plain(hi, lo, x, members_per_table)
     dev = _cuda_device(hi)
     K, I = hi.shape[-2], hi.shape[-1]
-    if M > _GRID_YZ_MAX:
-        raise ValueError(f"batch {M} exceeds the kernel's grid")
     out = torch.empty(lead + (K, 2), dtype=torch.float64, device=dev)
     if K and I and M:
         from .._build import load
+        if xc.data_ptr() % 16:          # x is read 16 bytes at a time
+            xc = xc.clone()
+        hp, lp = hi.data_ptr(), lo.data_ptr()
+        rt_log2, ways_log2, mb = rows_plan(M // g, K, I, g, _sm_count(dev))
         err = load().split_dual_matvec_rows(
-            hi.data_ptr(), lo.data_ptr(), g, xc.data_ptr(),
-            out.data_ptr(), M, K, I, rows_lanes(I), dev.index, _stream(dev))
+            hp, lp, g, xc.data_ptr(), out.data_ptr(), M, K, I, rt_log2,
+            ways_log2, mb, int(I % 4 == 0 and (hp | lp) % 16 == 0),
+            dev.index, _stream(dev))
         if err != 0:
             raise RuntimeError(f"split_dual_matvec_rows launch failed: "
                                f"cudaError {err}")
@@ -314,9 +363,8 @@ def matvec_cols(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
         hp, lp = hi.data_ptr(), lo.data_ptr()
         vec, tx_log2, kc, ncb, nch = cols_plan(
             M, K, I, (hp | lp) % 16 == 0, _sm_count(dev))
-        if M > _GRID_YZ_MAX or nch > _GRID_YZ_MAX:
-            raise ValueError(f"batch {M} / {nch} K chunks exceed the "
-                             f"kernel's grid")
+        if nch > _GRID_YZ_MAX:              # K over 67 million rows
+            raise ValueError(f"{nch} K chunks exceed the kernel's grid")
         stream = _stream(dev)
         part = tick = 0
         if nch > 1:

@@ -718,3 +718,49 @@ def test_select_candidates_batched_matches_per_region_and_jax(tmp_path,
             else:
                 np.testing.assert_array_equal(a, getattr(w, f.name), f.name)
                 np.testing.assert_array_equal(a, getattr(one, f.name), f.name)
+
+
+# --- an enumeration bucket with more members than a CUDA grid dimension ------
+
+def _first_reads(frags, n):
+    """The fragment matrix cut to the first n reads that hold a cell."""
+    import dataclasses
+    keep = np.nonzero((frags.p != 0).any(axis=1))[0][:n]
+    per_read = {f.name: getattr(frags, f.name)[keep]
+                for f in dataclasses.fields(frags)
+                if f.name in ("p", "baseq", "num_hete_links", "for_phasing",
+                              "downsampled", "haplotag", "assignment",
+                              "assignment_score")}
+    return dataclasses.replace(
+        frags, qnames=[frags.qnames[i] for i in keep], cells_off=None,
+        cells_i=None, cells_p=None, cells_q=None, **per_read)
+
+
+def test_enum_bucket_of_more_than_65535_members(tmp_path):
+    """64 regions of 10 SNPs with 8 reads each are one enumeration bucket
+    of K = 8, I = 16 and 1,024 configs a region: one launch carries 65,536
+    members. The bucket equals the per-region path and the JAX package's
+    batched result."""
+    n_regions, seeds = 64, (15, 21, 24, 30)
+    items = {"jax": [], "torch": []}
+    for pkg in items:
+        base = [_sim_region(tmp_path, sd, 10, 60, pkg) for sd in seeds]
+        cfg = base[0][0]
+        for n in range(n_regions):
+            _, cands, frags = base[n % len(seeds)]
+            items[pkg].append((_first_reads(frags, 8), cands, 300 + n, False))
+        items[pkg] = (cfg, items[pkg])
+    (jcfg, jitems), (cfg, titems) = items["jax"], items["torch"]
+    for f, c, _, _ in titems:
+        assert f.p.shape == (8, 10) and c.n == 10
+    K, I_pad, C = TO._bucket(8), TO._bucket(10), 1 << 10
+    chunk = min(C, 2 ** 24 // (n_regions * K * I_pad))
+    assert n_regions * chunk > 65535
+    before = _census()
+    got = TBD.phase_regions_batched(titems, cfg, device=CPU)
+    census = _delta(before)
+    assert census["phase_enum_buckets"] == 1 and census["phase_buckets"] == 0
+    alone = [TO.phase_region(f, c, cfg, s, ds, device=CPU)
+             for f, c, s, ds in titems]
+    _assert_states_equal(got, alone)
+    _assert_states_equal(got, JBD.phase_regions_batched(jitems, jcfg))

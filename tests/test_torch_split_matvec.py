@@ -326,10 +326,35 @@ def test_cols_plan_covers_the_table(B, K, I, aligned):
         assert (vec, kc, ncb, nch) == (4, 512, 1, 1)
 
 
-@pytest.mark.parametrize("I,lanes", [(1, 4), (4, 4), (5, 8), (16, 16),
-                                     (17, 32), (512, 32)])
-def test_rows_lanes(I, lanes):
-    assert CK.rows_lanes(I) == lanes
+@pytest.mark.parametrize("tables,K,I,g,want", [
+    (4, 512, 16, 64, (8, 0, 4)), (4, 512, 16, 512, (8, 0, 32)),
+    (1, 512, 16, 1024, (8, 0, 16)), (64, 8, 16, 1024, (3, 5, 512)),
+    (12, 64, 8, 16, (6, 2, 4)), (1, 64, 8, 16, (6, 2, 4)),
+    (4, 512, 8, 64, (8, 0, 4)), (1, 512, 8, 64, (8, 0, 1)),
+    (1, 4096, 512, 1, (3, 0, 1)), (3, 200, 24, 5, (8, 0, 1)),
+    (100, 64, 16, 1, (6, 0, 1)), (1, 1, 1, 1, (3, 0, 1)),
+    (2, 40, 600, 70, (3, 0, 6)), (1, 8, 16, 1 << 17, (3, 5, 1024)),
+    (4096, 8, 8, 64, (3, 5, 64))])
+def test_rows_plan_covers_every_member(tables, K, I, g, want):
+    """The launch shape the wrapper hands the rows kernel: a block is at
+    most 256 threads, row threads by member ways; one thread per row up to
+    32 cells, a warp per row beyond; the chunks of a table's members cover
+    all g, in whole turns of the ways, and on an H100's 132 SMs there are
+    no more chunks than SMs."""
+    rt_log2, ways_log2, mb = CK.rows_plan(tables, K, I, g, 132)
+    assert (rt_log2, ways_log2, mb) == want
+    ways = 1 << ways_log2
+    assert 3 <= rt_log2 <= 8 and rt_log2 + ways_log2 <= 8
+    assert 1 <= mb <= g and (mb % ways == 0 or mb == g)
+    if I <= CK.ROWS_WALK_MAX_I:
+        assert (1 << rt_log2) >= min(K, 256) and ways <= max(1, g)
+    else:
+        assert (1 << rt_log2, ways) == (CK.ROWS_LANE_ROWS, 1)
+    chunks = -(-g // mb)
+    assert (chunks - 1) * mb < g <= chunks * mb
+    # the chunks lie on the grid's second dimension: a few per SM, whatever
+    # the number of members
+    assert chunks <= max(1, CK.ROWS_BLOCKS_PER_SM * 132)
 
 
 # --- members per table: a bucket of regions with C configs each -------------
@@ -451,3 +476,94 @@ def test_cols_plan_for_a_deep_bucket():
     assert (4 * nch * 512, 4 * ncb) == (16384, 32)
     # an enumeration bucket: 256 members over 4 small tables, K is not cut
     assert CK.cols_plan(256, 512, 16, True, 132)[3:] == (1, 1)
+
+
+# --- the enumeration shapes a run launches -----------------------------------
+# A 6-SNP bucket (I = 8, 64 configs), a 10-SNP bucket as the batched path chunks it
+# (I = 16, 512 configs a launch), one 10-SNP region's 1,024 configs, and 64
+# regions of 8 reads with 1,024 configs each: 65,536 members, more than the
+# second or third dimension of a CUDA grid holds. Tolerance: 1e-12 relative on
+# the f64 sums against the exact product (only the order of summation
+# differs); the JAX einsum forms to their own f32 chunk bound.
+
+ENUM_SHAPES = [(4, 512, 8, 64), (4, 512, 16, 512), (1, 512, 16, 1024),
+               (64, 8, 16, 1024)]
+
+
+def _enum_inputs(rng, tables, K, I, g):
+    _, hi, lo = _split(rng, (tables, K, I))
+    x = rng.integers(-1, 2, size=(tables * g, I, 2)).astype(np.float64)
+    s = rng.integers(-1, 2, size=(tables * g, K)).astype(np.float64)
+    s[:, ::5] = 0.0
+    return hi, lo, x, s
+
+
+@pytest.mark.parametrize("which", ["wrapper", "plain"])
+@pytest.mark.parametrize("tables,K,I,g", ENUM_SHAPES)
+def test_enumeration_shapes_match_jax_and_exact(rng, tables, K, I, g, which):
+    hi, lo, x, s = _enum_inputs(rng, tables, K, I, g)
+    th, tl = torch.from_numpy(hi), torch.from_numpy(lo)
+    rows_fn, cols_fn = ((CK.dual_matvec_rows, CK.matvec_cols)
+                        if which == "wrapper" else
+                        (CK.dual_matvec_rows_plain, CK.matvec_cols_plain))
+    rows = rows_fn(th, tl, torch.from_numpy(x), members_per_table=g).numpy()
+    cols = cols_fn(th, tl, torch.from_numpy(s), members_per_table=g).numpy()
+    M = tables * g
+    assert rows.shape == (M, K, 2) and cols.shape == (M, I)
+    dp = hi.astype(np.float64) + lo.astype(np.float64)
+    # every member against the exact f64 product
+    want_r = np.einsum("tki,tgic->tgkc", dp, x.reshape(tables, g, I, 2))
+    want_c = np.einsum("tgk,tki->tgi", s.reshape(tables, g, K), dp)
+    assert _rel(rows, want_r.reshape(M, K, 2)) <= EXACT_RTOL
+    assert _rel(cols, want_c.reshape(M, I)) <= EXACT_RTOL
+    # members at both ends of a table and of the batch through the JAX forms
+    for m in sorted({0, g - 1, M // 2, M - 1}):
+        t = m // g
+        dp2 = jnp.stack([jnp.asarray(hi[t]), jnp.asarray(lo[t])])
+        np.testing.assert_allclose(
+            rows[m], np.asarray(JKF._matvec_rows(dp2, jnp.asarray(x[m]))),
+            rtol=0, atol=2e-4 * (np.abs(dp[t]).sum(axis=1).max() + 1))
+        np.testing.assert_allclose(
+            cols[m], np.asarray(JKF._matvec_cols(dp2, jnp.asarray(s[m]))),
+            rtol=0, atol=2e-4 * (np.abs(dp[t]).sum(axis=0).max() + 1))
+    # the last member through the Pallas kernels (interpret mode)
+    m, t = M - 1, tables - 1
+    pal_r = PK.dual_matvec_rows(jnp.asarray(hi[t]), jnp.asarray(lo[t]),
+                                jnp.asarray(x[m]), interpret=True)
+    pal_c = PK.matvec_cols(jnp.asarray(hi[t]), jnp.asarray(lo[t]),
+                           jnp.asarray(s[m]), interpret=True)
+    assert _rel(rows[m], dp[t] @ x[m]) <= \
+        max(_rel(pal_r, dp[t] @ x[m]), 1e-9) * 1.5
+    assert _rel(cols[m], s[m] @ dp[t]) <= \
+        max(_rel(pal_c, s[m] @ dp[t]), 1e-9) * 1.5
+
+
+@pytest.mark.parametrize("tables,K,I,g", ENUM_SHAPES + [(3, 200, 24, 5)])
+def test_rows_member_among_g_equals_member_alone_exactly(rng, tables, K, I, g):
+    """A member's rows result with g members per table is its result alone
+    on its table, bit for bit: batched, per-region and one-config runs can
+    then write equal bytes."""
+    hi, lo, x, _ = _enum_inputs(rng, tables, K, I, g)
+    th, tl = torch.from_numpy(hi), torch.from_numpy(lo)
+    rows = CK.dual_matvec_rows(th, tl, torch.from_numpy(x),
+                               members_per_table=g)
+    M = tables * g
+    for m in sorted({0, 1, g - 1, g % M, M // 2, M - 1}):
+        alone = CK.dual_matvec_rows(th[m // g], tl[m // g],
+                                    torch.from_numpy(x[m]))
+        assert torch.equal(rows[m], alone)
+
+
+def test_operands_accept_more_members_than_a_grid_dimension_holds():
+    """65,536 members (64 regions x 1,024 configs) are legal operands of
+    both wrappers, flat or as [tables, members, ...]."""
+    hi, lo = torch.zeros(64, 8, 16), torch.zeros(64, 8, 16)
+    x = torch.zeros(65536, 16, 2, dtype=torch.float64)
+    s = torch.zeros(64, 1024, 8, dtype=torch.float64)
+    M, g, xc, lead = CK._operands(hi, lo, x, 2, members_per_table=1024)
+    assert (M, g, lead) == (65536, 1024, (65536,)) and xc is x
+    assert CK._operands(hi, lo, s, 1)[:2] == (65536, 1024)
+    assert CK._operands(hi[0], lo[0], x, 2)[:2] == (65536, 65536)
+    assert CK.dual_matvec_rows(hi, lo, x, members_per_table=1024).shape == \
+        (65536, 8, 2)
+    assert CK.matvec_cols(hi, lo, s).shape == (64, 1024, 16)
