@@ -79,7 +79,34 @@ package) and fails on the first check that does not hold:
   7. split vs f64 — (c) the deep input with LONGCALLR_F32_KERNELS=0 (f64
                path on the card), batched and --no-batched, each in a
                fresh process: byte-identical to the split runs;
-  8. imports — neither jax nor any longcallr_tpu module was imported.
+  8. stream  — the stream input of the JAX package's bench (5 contigs x 13
+               loci of 40 kb at 120x, SNP spacing 200: 104,000 reads of 3 kb)
+               through the CLI's main() with --stream and with --no-stream
+               (resident, batched), 8 threads each: VCF bytes and phased-BAM
+               payload equal, both kernels launched on both, only at shapes
+               that phase 2 checked ((5, 2048, 256) and (3, 2048, 256)
+               tables, one member each), every bucket placed on the card
+               at the default thresholds; wall, reads/s, the stream's
+               stages, the host RSS peak of each leg and the peak of device
+               memory per contig are printed;
+  9. resume  — the genome workload through the CLI with --resume, resident
+               and --stream: a second run skips every region and launches
+               no kernel, a third on a checkpoint cut to its header and
+               first half recomputes the rest; all write the same bytes;
+ 10. placement — experiments/torch_placement_sweep.py --quick (host against
+               card by size: the crossing points beside the defaults of
+               utils/device.py); then the enumeration workload (g) and the
+               preset goldens with the router at its default, off
+               (threshold 0) and all-host (2^62): bytes equal, the counts
+               of problems placed on the host and on the card printed;
+ 11. analysis — ASE and ASJ on a simulated phased BAM in this process,
+               where CUDA is initialised: the fork gate is closed, the
+               tables are written with threads=4 and equal threads=1's;
+ 12. imports — neither jax nor any longcallr_tpu module was imported.
+
+The goldens of phase 4 and the enumeration workloads of phase 6 run with
+the placement off (everything on the card, as before there was one): at its
+default their regions are of host size. Every other run has the default.
 
 Each phase prints one JSON line. Then the kernel summary line (``ms``,
 ``plain_ms`` and ``library_ms`` are device times per call with the tables
@@ -90,7 +117,8 @@ the four deep regions in one wave; ``launches`` counts the default batched
 deep run, ``launches_per_region`` the per-region one,
 ``launches_one_wave`` the run of (f), ``launches_enum`` and
 ``launches_enum_per_region`` the two runs of (g), ``launches_enum_deep`` and
-``launches_enum_deep_per_region`` the two of (i); each timed shape lists
+``launches_enum_deep_per_region`` the two of (i), ``launches_stream`` and
+``launches_stream_resident`` the two legs of phase 8; each timed shape lists
 under ``launched_by`` the runs that launched the kernel there), the card's
 name and power limit (nvidia-smi), and last the result line.
 """
@@ -98,6 +126,7 @@ name and power limit (nvidia-smi), and last the result line.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -146,14 +175,25 @@ ENUM_RUN_REGION = (16, 64, 8, True)
 # 64 regions of 10 SNPs with at most 8 reads each in one bucket: 65,536
 # members in one launch (checked, not timed)
 ENUM_LIMIT = (64, 8, 16, False, 1024)
+# what the stream input launches: a contig's 13 loci of 1,600 reads x 198
+# SNPs go in waves of 5, 5 and 3 regions, one bucket each (the resident run
+# of the same input: waves of 5)
+STREAM_WAVE = (5, 2048, 256, False)
+STREAM_TAIL = (3, 2048, 256, False)
+# rows of σ that carry a read at the deep and stream shapes (the rest is
+# padding, σ = 0)
+ACTIVE_ROWS = {DEEP: 4000, DEEP_BUCKET: 4000, DEEP_WAVE: 4000,
+               STREAM_WAVE: 1600, STREAM_TAIL: 1600}
 TIMED = {DEEP: "deep", DEEP_BUCKET: "deep_bucket", DEEP_WAVE: "deep_wave",
+         STREAM_WAVE: "stream_wave", STREAM_TAIL: "stream_tail",
          ENUM6_BUCKET: "enum6_bucket", ENUM6_REGION: "enum6_region",
          ENUM10_BUCKET: "enum10_bucket", ENUM10_REGION: "enum10_region",
          ENUM_RUN_BUCKET: "enum_run_bucket",
          ENUM_RUN_REGION: "enum_run_region"}
 # every shape phase_kernels holds against the plain versions: the main-path
 # shapes first, then unaligned ones
-CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, ENUM6_BUCKET, ENUM6_REGION,
+CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, STREAM_WAVE, STREAM_TAIL,
+                  ENUM6_BUCKET, ENUM6_REGION,
                   ENUM10_BUCKET, ENUM10_REGION, ENUM_RUN_BUCKET,
                   ENUM_RUN_REGION, ENUM_LIMIT,
                   (1, 37, 300, False), (1, 1025, 129, False),
@@ -533,11 +573,11 @@ def phase_kernels(card: str, dev):
         s = torch.as_tensor(
             rng.integers(-1, 2, size=lead + (K,)).astype(np.float64),
             device=dev)
-        if shape in (DEEP, DEEP_BUCKET, DEEP_WAVE):
+        if shape in ACTIVE_ROWS:
             # a deep region's σ: every read on a haplotype, the padded tail 0
             s = torch.as_tensor(rng.choice([-1.0, 1.0], size=lead + (K,)),
                                 device=dev)
-            s[..., 4000:] = 0.0
+            s[..., ACTIVE_ROWS[shape]:] = 0.0
         row = {"B": B, "K": K, "I": I, "shared_dp": shared,
                "members_per_table": C}
         for name, op in (("dual_matvec_rows", x), ("matvec_cols", s)):
@@ -655,8 +695,9 @@ def phase_goldens(card: str, dev, tmp: str) -> None:
         for batched in (None, True):
             t0 = time.monotonic()
             bam, fa, cfg, anno = goldens.golden_workload(name, tmp)
-            out = run(bam, fa, os.path.join(tmp, f"out_{name}_{batched}"),
-                      cfg, anno_path=anno, batched=batched, device=dev)
+            with _router(0):
+                out = run(bam, fa, os.path.join(tmp, f"out_{name}_{batched}"),
+                          cfg, anno_path=anno, batched=batched, device=dev)
             recs, tags = goldens.records_and_tags(out.vcf_path,
                                                   out.phased_bam_path)
             want_recs, want_tags = goldens.golden(name)
@@ -676,8 +717,9 @@ def phase_goldens(card: str, dev, tmp: str) -> None:
         return
     ref_fa = os.path.join(tmp, "demo_chr20_consensus.fa")
     demo.make_consensus_reference(demo.DEMO_BAM, ref_fa)
-    out = run(demo.DEMO_BAM, ref_fa, os.path.join(tmp, "demo"),
-              preset("hifi-masseq").replace(threads=2), device=dev)
+    with _router(0):
+        out = run(demo.DEMO_BAM, ref_fa, os.path.join(tmp, "demo"),
+                  preset("hifi-masseq").replace(threads=2), device=dev)
     recs, tags = goldens.records_and_tags(out.vcf_path, out.phased_bam_path)
     base = os.path.join(goldens.GOLDEN_DIR, "demo_chr20")
     with open(base + "_records.vcf") as f:
@@ -740,6 +782,7 @@ def phase_deep(card: str, tmp: str):
     if out.n_split_kept <= 0:
         raise AssertionError("every region needed the f64 rerun")
     _emit("deep", card, reads=params["n_reads"], regions=out.n_regions,
+          placed=_all_on_card("deep input, per-region loop", out),
           records=out.n_records, phased_sites=out.n_phased_sites,
           generate_seconds=gen_s, wall_seconds=wall,
           reads_per_second=params["n_reads"] / wall,
@@ -784,6 +827,40 @@ def _must_equal(what: str, a, b) -> None:
                              f"phased-BAM payload equal {a[1] == b[1]}")
 
 
+ALL_HOST = 1 << 62
+
+
+@contextlib.contextmanager
+def _router(threshold):
+    """The placement thresholds of utils/device.py set for the runs inside:
+    0 places everything on the run's device, ALL_HOST everything on the
+    host, None leaves the defaults."""
+    from longcallr_tpu_torch.utils import device as D
+
+    saved = D.MIN_ACCEL_PHASE_WORK, D.MIN_ACCEL_CELLS
+    if threshold is not None:
+        D.MIN_ACCEL_PHASE_WORK = D.MIN_ACCEL_CELLS = threshold
+    try:
+        yield
+    finally:
+        D.MIN_ACCEL_PHASE_WORK, D.MIN_ACCEL_CELLS = saved
+
+
+def _placed(out) -> dict:
+    """Phase problems of one run by where the router placed them."""
+    return {"host": int(out.stage_seconds.get("phase_host_placed", 0)),
+            "card": int(out.stage_seconds.get("phase_card_placed", 0)),
+            "degraded": out.n_degraded_placements}
+
+
+def _all_on_card(what: str, out) -> dict:
+    placed = _placed(out)
+    if placed["host"] or placed["card"] <= 0:
+        raise AssertionError(f"{what}: with the default thresholds every "
+                             f"phase problem belongs on the card: {placed}")
+    return placed
+
+
 @contextlib.contextmanager
 def _forced_split():
     """Split mode forced, as LONGCALLR_F32_KERNELS=1 sets it when the
@@ -796,6 +873,12 @@ def _forced_split():
         yield
     finally:
         O.USE_F32_KERNELS = saved
+
+
+# the enumeration workload of phase_batched (g) and phase_placement: twelve
+# loci of four SNPs
+ENUM_CONTIGS = [(f"chrE{c}", [(4_000, 40, 900)] * 4) for c in range(3)]
+ENUM_SEED = 20_261_016
 
 
 def _enum_workload(tmp: str, tag: str, label: str, contigs, seed: int):
@@ -893,6 +976,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         "regions": out.n_regions, "records": out.n_records,
         "wall_seconds": wall, "reads_per_second": n_reads / wall,
         "launches": launches, "launch_shapes": shapes, "census": census,
+        "placed": _all_on_card("(a) deep input, batched", out),
         "stage_seconds": stage, "split_regions_kept": out.n_split_kept,
         "f64_reruns": out.n_f64_reruns},
         "b_equal_to_per_region": True}
@@ -968,15 +1052,17 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                                       "equal": True}
 
     # (g) twelve loci of four SNPs: enumeration buckets, regions x configs
-    res["g_enum"], enum_runs = _enum_workload(
-        tmp, "(g)", "enum",
-        [(f"chrE{c}", [(4_000, 40, 900)] * 4) for c in range(3)], 20_261_016)
-    # (i) four loci of 6 SNPs and four of 10 SNPs, 432 and 510 reads each:
-    # tables of (512, 8) with 64 configs and of (512, 16) with 1,024
-    res["i_enum_deep"], enum_deep_runs = _enum_workload(
-        tmp, "(i)", "enum_deep",
-        [("chrF0", [(5_400, 240, 900)] * 4),
-         ("chrF1", [(9_000, 170, 900)] * 4)], 20_261_017)
+    # (with the placement off: at its default (g)'s bucket and (i)'s 6-SNP
+    # regions are of host size; phase_placement runs (g) at the default)
+    with _router(0):
+        res["g_enum"], enum_runs = _enum_workload(
+            tmp, "(g)", "enum", ENUM_CONTIGS, ENUM_SEED)
+        # (i) four loci of 6 SNPs and four of 10 SNPs, 432 and 510 reads
+        # each: tables of (512, 8) with 64 configs, of (512, 16) with 1,024
+        res["i_enum_deep"], enum_deep_runs = _enum_workload(
+            tmp, "(i)", "enum_deep",
+            [("chrF0", [(5_400, 240, 900)] * 4),
+             ("chrF1", [(9_000, 170, 900)] * 4)], 20_261_017)
     for shape in (ENUM6_BUCKET, ENUM10_BUCKET):
         if list(_launch_key(shape)) not in enum_deep_runs[0][1][
                 "dual_matvec_rows"]:
@@ -1019,6 +1105,313 @@ def phase_split_vs_f64(card: str, tmp: str, bam: str, fa: str,
     _emit("split_vs_f64", card, **done)
 
 
+class _RssPeak:
+    """Peak of this process's resident set while the block runs (bytes),
+    sampled every 20 ms from /proc/self/statm, beside the value at entry."""
+
+    def __enter__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._now()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def _now(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _watch(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._now())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self._now())
+
+
+@contextlib.contextmanager
+def _device_peak_per_contig(peaks: list):
+    """Appends to ``peaks`` the peak of allocated device memory over each
+    contig of a stream: run_streaming ends every contig with
+    malloc_tune.trim(), where the peak is read and reset."""
+    from longcallr_tpu_torch.utils import malloc_tune
+
+    orig = malloc_tune.trim
+
+    def trim_and_read():
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        return orig()
+
+    malloc_tune.trim = trim_and_read
+    try:
+        yield
+    finally:
+        malloc_tune.trim = orig
+
+
+# loci per contig of the stream input (the JAX package's bench: 13)
+STREAM_LOCI = 13
+STREAM_STAGES = ("window_load", "discovery", "bam_emit", "bam_write_drain")
+
+
+def phase_stream(card: str, tmp: str):
+    """The bench's stream input through the CLI with --stream and with
+    --no-stream, at the default placement thresholds."""
+    from longcallr_tpu_torch.utils import malloc_tune
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+
+    bam = os.path.join(tmp, "stream.bam")
+    fa = os.path.join(tmp, "stream.fa")
+    spec = [(f"chr{i + 1}", [(40_000, 120, 200)] * STREAM_LOCI)
+            for i in range(5)]
+    t0 = time.monotonic()
+    params = make_genome_workload(bam, fa, contigs=spec)
+    gen_s = time.monotonic() - t0
+    legs, runs = {}, {}
+    for label, flag in (("stream", "--stream"), ("resident", "--no-stream")):
+        gc.collect()
+        malloc_tune.trim()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        peaks = []
+        with _RssPeak() as rss, _device_peak_per_contig(peaks):
+            prefix, out, launches, wall = _cli_run(
+                tmp, f"stream_{label}", bam, fa, extra=[flag, "-t", "8"])
+        run_peak = torch.cuda.max_memory_allocated()
+        shapes = _launched_shapes(f"stream input, {flag}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"stream input, {flag}: kernel {name} "
+                                     f"was not launched")
+        if out.n_records <= 0 or out.n_regions != 5 * STREAM_LOCI:
+            raise AssertionError(f"stream input, {flag}: {out.n_regions} "
+                                 f"regions, {out.n_records} records")
+        st = out.stage_seconds
+        streamed = all(k in st for k in STREAM_STAGES[:3])
+        if streamed != (label == "stream"):
+            raise AssertionError(f"{flag}: the stream's stages are "
+                                 f"{'missing' if label == 'stream' else 'there'}")
+        legs[label] = {
+            "wall_seconds": wall, "reads_per_second": params["n_reads"] / wall,
+            "regions": out.n_regions, "records": out.n_records,
+            "launches": launches, "launch_shapes": shapes,
+            "census": _census(st),
+            "placed": _all_on_card(f"stream input, {flag}", out),
+            "stage_seconds": st, "split_regions_kept": out.n_split_kept,
+            "f64_reruns": out.n_f64_reruns,
+            "host_rss_start_bytes": rss.start, "host_rss_peak_bytes": rss.peak,
+            "host_rss_growth_bytes": rss.peak - rss.start,
+            "device_bytes_held_before": held,
+            "device_peak_bytes": max(peaks + [run_peak])}
+        if label == "stream":
+            if len(peaks) != 5:
+                raise AssertionError(f"expected 5 contigs, saw {len(peaks)}")
+            legs[label]["device_peak_bytes_per_contig"] = peaks
+            # a contig's peak is its largest bucket plus whatever the next
+            # wave has prepared meanwhile; growth with the contigs would
+            # show as a multiple
+            if max(peaks) > 2 * min(peaks):
+                raise AssertionError(f"the device peak grows with the "
+                                     f"contigs: {peaks}")
+        runs[label] = (prefix, (launches, shapes))
+    _must_equal("stream vs resident, stream input",
+                _payloads(runs["stream"][0]), _payloads(runs["resident"][0]))
+    for shape in (STREAM_WAVE, STREAM_TAIL):
+        if list(_launch_key(shape)) not in runs["stream"][1][1][
+                "dual_matvec_rows"]:
+            raise AssertionError(f"the stream did not launch at "
+                                 f"{_launch_key(shape)}")
+    _emit("stream", card, reads=params["n_reads"], contigs=5,
+          loci_per_contig=STREAM_LOCI, threads=8, generate_seconds=gen_s,
+          equal=True, **legs)
+    return {"stream": runs["stream"][1],
+            "stream_resident": runs["resident"][1]}
+
+
+def phase_resume(card: str, tmp: str) -> None:
+    """--resume through the CLI on the genome workload, resident and
+    --stream: first run, rerun (every region skipped, no kernel launched),
+    rerun on a checkpoint cut to its header and first half (the rest is
+    recomputed). All write the bytes of a run without a checkpoint."""
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+
+    gbam, gfa = os.path.join(tmp, "genome.bam"), os.path.join(tmp, "genome.fa")
+    make_genome_workload(gbam, gfa)
+    want = _payloads(_cli_run(tmp, "resume_none", gbam, gfa)[0])
+    done = {}
+    for mode, flags in (("resident", ["--resume"]),
+                        ("stream", ["--resume", "--stream"])):
+        label = f"resume_{mode}"
+        ckpt = os.path.join(tmp, label + ".regions.ckpt")
+        steps = []
+        for step in ("first", "rerun", "cut"):
+            if step == "cut":
+                with open(ckpt) as f:
+                    lines = f.readlines()
+                keep = 1 + (len(lines) - 1) // 2
+                with open(ckpt, "w") as f:
+                    f.writelines(lines[:keep])
+            prefix, out, launches, wall = _cli_run(tmp, label, gbam, gfa,
+                                                   extra=flags)
+            _must_equal(f"--resume {mode}, {step}", _payloads(prefix), want)
+            placed = _placed(out)
+            n_placed = placed["host"] + placed["card"]
+            if step == "rerun" and (any(launches.values()) or n_placed):
+                raise AssertionError(f"--resume {mode}: the rerun recomputed "
+                                     f"({launches}, {placed})")
+            if step != "rerun" and not n_placed or \
+                    step == "first" and not all(launches.values()):
+                raise AssertionError(f"--resume {mode}, {step}: nothing was "
+                                     f"computed ({launches}, {placed})")
+            with open(ckpt) as f:
+                n_lines = len(f.readlines())
+            if n_lines != 1 + out.n_regions:
+                raise AssertionError(f"--resume {mode}, {step}: checkpoint "
+                                     f"has {n_lines} lines for "
+                                     f"{out.n_regions} regions")
+            steps.append({"step": step, "wall_seconds": wall,
+                          "launches": launches, "placed": placed,
+                          "regions": out.n_regions,
+                          "checkpoint_lines": n_lines})
+        if not steps[2]["placed"]["host"] + steps[2]["placed"]["card"] \
+                < steps[0]["placed"]["host"] + steps[0]["placed"]["card"]:
+            raise AssertionError(f"--resume {mode}: the cut checkpoint's run "
+                                 f"recomputed everything: {steps}")
+        done[mode] = steps
+    _emit("resume", card, equal=True, **done)
+
+
+def phase_placement(card: str, dev, tmp: str) -> None:
+    """The sweep's crossing points beside the defaults; then the
+    enumeration workload (g) and the preset goldens with the router at its
+    default, off and all-host: the same bytes each way."""
+    from longcallr_tpu_torch.pipeline.caller import run
+    from longcallr_tpu_torch.utils import device as D
+    from longcallr_tpu_torch.utils import goldens
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+
+    t0 = time.monotonic()
+    res = subprocess.run(
+        [sys.executable, os.path.join(HERE, "experiments",
+                                      "torch_placement_sweep.py"), "--quick"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"the placement sweep failed "
+                             f"({res.returncode}):\n{res.stderr[-3000:]}")
+    rows = [json.loads(l) for l in res.stdout.splitlines() if l.startswith("{")]
+    sweep = {"seconds": time.monotonic() - t0,
+             "crossings": rows[-1]["crossings"],
+             "rows": [{k: r[k] for k in ("family", "label", "size", "card_s",
+                                         "host_s")} for r in rows[:-1]]}
+
+    settings = (("default", None), ("off", 0), ("all_host", ALL_HOST))
+    ebam = os.path.join(tmp, "enum.bam")
+    efa = os.path.join(tmp, "enum.fa")
+    make_genome_workload(ebam, efa, contigs=ENUM_CONTIGS, seed=ENUM_SEED)
+    enum, first = {}, None
+    for name, value in settings:
+        with _router(value):
+            prefix, out, launches, wall = _cli_run(tmp, f"placed_{name}",
+                                                   ebam, efa)
+        got = _payloads(prefix)
+        first = first or got
+        _must_equal(f"enumeration workload, router {name} vs default", got,
+                    first)
+        enum[name] = {"placed": _placed(out), "launches": launches,
+                      "wall_seconds": wall, "census": _census(out.stage_seconds),
+                      "region_phase": out.stage_seconds.get("region_phase")}
+    if any(enum["all_host"]["launches"].values()) \
+            or enum["all_host"]["placed"]["card"]:
+        raise AssertionError(f"all-host launched a kernel: {enum['all_host']}")
+    if not all(enum["off"]["launches"].values()) \
+            or enum["off"]["placed"]["host"]:
+        raise AssertionError(f"router off left the card: {enum['off']}")
+
+    golden = []
+    for gname in goldens.GOLDEN_NAMES:
+        for name, value in settings:
+            bam, fa, cfg, anno = goldens.golden_workload(gname, tmp)
+            with _router(value):
+                out = run(bam, fa, os.path.join(tmp, f"placed_{gname}_{name}"),
+                          cfg, anno_path=anno, device=dev)
+            if goldens.records_and_tags(out.vcf_path, out.phased_bam_path) \
+                    != goldens.golden(gname):
+                raise AssertionError(f"golden {gname} differs with the router "
+                                     f"{name}")
+            golden.append({"workload": gname, "router": name,
+                           "byte_equal": True, "placed": _placed(out)})
+    _emit("placement", card, min_phase_work=D.MIN_ACCEL_PHASE_WORK,
+          min_cells=D.MIN_ACCEL_CELLS, sweep=sweep, enum_workload=enum,
+          goldens=golden)
+
+
+def phase_analysis(card: str, dev, tmp: str) -> None:
+    """ASE and ASJ in this process, after CUDA is initialised: the fork gate
+    is closed, the tables are written with threads=4 and equal the tables
+    of threads=1."""
+    from longcallr_tpu_torch.analysis import ase, asj
+    from longcallr_tpu_torch.config import preset
+    from longcallr_tpu_torch.pipeline.caller import run
+    from longcallr_tpu_torch.utils.simulate import (make_reference, plant_snps,
+                                                    simulate_bam)
+
+    if not torch.cuda.is_initialized():
+        raise AssertionError("CUDA is not initialised in this process")
+    if ase.FORK_POOL is not None or ase._fork_pool_ok():
+        raise AssertionError("the fork gate is open with CUDA initialised")
+    rng = np.random.default_rng(20261018)
+    ref = make_reference(rng, 12000)
+    truth = plant_snps(rng, ref, n_het=14, n_hom=2, min_gap=500)
+    bam = os.path.join(tmp, "analysis.bam")
+    simulate_bam(bam, rng, ref, truth, n_reads=240, read_len=3000,
+                 err_rate=0.01, with_introns=True)
+    fa = bam.replace(".bam", ".fa")
+    out = run(bam, fa, os.path.join(tmp, "analysis"),
+              preset("hifi-masseq").replace(min_read_length=100), device=dev)
+    gtf = os.path.join(tmp, "analysis.gtf")
+    with open(gtf, "w") as f:
+        for gid, s, e, exons in (("G1", 1, 6000, [(1, 2000), (2600, 6000)]),
+                                 ("G2", 6001, 12000, [(6001, 12000)])):
+            attrs = (f'gene_id "{gid}"; gene_type "protein_coding"; '
+                     f'gene_name "GENE{gid[1:]}";')
+            f.write(f"chrS\thv\tgene\t{s}\t{e}\t.\t+\t.\t{attrs}\n")
+            for es, ee in exons:
+                f.write(f'chrS\thv\texon\t{es}\t{ee}\t.\t+\t.\t{attrs} '
+                        f'transcript_id "{gid}.t1";\n')
+    saved, ase.ASE_CHUNK_MIN = ase.ASE_CHUNK_MIN, 8   # several chunks at 4
+    tables = {}
+    try:
+        for threads in (4, 1):
+            prefix = os.path.join(tmp, f"analysis_t{threads}")
+            ase.analyze_ase_genes(gtf, out.phased_bam_path,
+                                  prefix + ".ase.tsv", threads,
+                                  {"protein_coding"}, 5, 0.001)
+            # min_count 1: the simulator draws every read's intron anew
+            asj.analyze(gtf, out.phased_bam_path, fa, prefix, 1,
+                        {"protein_coding"}, threads, False, 0)
+            tables[threads] = {}
+            for ext in (".ase.tsv", ".asj.tsv", ".asj_gene.tsv",
+                        ".gene_coverage.tsv"):
+                with open(prefix + ext) as f:
+                    tables[threads][ext] = f.read()
+    finally:
+        ase.ASE_CHUNK_MIN = saved
+    if tables[4] != tables[1]:
+        raise AssertionError("the tables of threads=4 differ from threads=1")
+    n_rows = {ext: t.count("\n") - 1 for ext, t in tables[1].items()}
+    if min(n_rows.values()) < 1:
+        raise AssertionError(f"empty analysis tables: {n_rows}")
+    _emit("analysis", card, fork_pool_ok=False, cuda_initialized=True,
+          reads_tagged=out.n_reads_tagged, rows=n_rows,
+          equal_to_threads_1=True)
+
+
 def phase_imports(card: str) -> None:
     """The run imported neither jax nor any module of the JAX package."""
     bad = sorted(m for m in sys.modules
@@ -1053,6 +1446,10 @@ def main() -> int:
         runs = phase_batched(card, tmp, bam, fa, out, n_reads)
         phase_split_vs_f64(card, tmp, bam, fa,
                            out.vcf_path[:-len(".vcf")])
+        runs.update(phase_stream(card, tmp))
+        phase_resume(card, tmp)
+        phase_placement(card, dev, tmp)
+        phase_analysis(card, dev, tmp)
     phase_imports(card)
     runs["per_region"] = per_region
     replaces = {

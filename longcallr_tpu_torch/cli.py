@@ -1,29 +1,34 @@
 """Command-line interface of the torch port: the flags, defaults and help
-text of the JAX package's CLI, run on the resident paths of
-``pipeline/caller.py`` (batched for more than one region unless
-``--no-batched``, per region otherwise). ``build_parser`` and
-``config_from_args`` are copied
+text of the JAX package's CLI, run on the paths of ``pipeline/caller.py``:
+resident (batched for more than one region unless ``--no-batched``, per
+region otherwise) or, with ``--stream``, one contig at a time.
+``build_parser`` and ``config_from_args`` are copied
 from ``longcallr_tpu/cli.py`` (only the program name differs), so both
 packages parse one command line alike.
 
     python -m longcallr_tpu_torch.cli -b in.bam -f ref.fa -o out -p hifi-masseq
-        [--platform cuda|cpu]
+        [--platform cuda|cpu] [--stream|--no-stream] [--resume]
 
 ``--platform`` defaults to ``cuda`` and raises when no CUDA device is
 available. ``--get-blocks`` lists the regions and exits (host only).
-Flags of paths that are not ported yet (``--stream``, ``--resume``, the pod
-flags, ``--profile-dir``) raise ``NotImplementedError`` naming their
-ROADMAP item.
+``--stream`` needs a ``.bai`` beside the BAM and takes no ``-r``; with
+neither ``--stream`` nor ``--no-stream`` nor ``-r``, an indexed BAM larger
+than LONGCALLR_STREAM_AUTO_MB (1024) is streamed. ``--resume`` keeps a
+region checkpoint on either path. The pod flags and ``--profile-dir`` are
+not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 from typing import List, Optional
 
 from .config import PRESET_NAMES, CallerConfig, preset
+
+log = logging.getLogger(__name__)
 
 # CallerOutputs of the last run through main() (read by chip_smoke.py)
 LAST_RUN = None
@@ -155,10 +160,6 @@ def config_from_args(args) -> CallerConfig:
 
 
 def _unported(args) -> Optional[str]:
-    if args.stream:
-        return f"--stream ({_PORT_ITEM}: --stream and --resume)"
-    if args.resume:
-        return f"--resume ({_PORT_ITEM}: --stream and --resume)"
     if any(f is not None for f in (args.coordinator, args.num_processes,
                                    args.process_id)):
         return f"pod mode ({_PORT_ITEM}: giant regions and multihost)"
@@ -181,7 +182,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .io.bam import BamFile
     from .io.fasta import FastaFile
-    from .pipeline.caller import build_regions, run
+    from .pipeline.caller import build_regions, run, run_streaming
 
     if args.get_blocks:
         bam = BamFile(args.bam_path, threads=max(1, cfg.threads))
@@ -203,11 +204,31 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .utils.device import resolve_device
     global LAST_RUN
+    if args.stream is None and not args.region:
+        # AUTO: a big indexed BAM should not be whole-resident by default;
+        # stream == resident outputs are byte-identical
+        auto_mb = float(os.environ.get("LONGCALLR_STREAM_AUTO_MB", "1024"))
+        if (os.path.exists(args.bam_path + ".bai")
+                and os.path.getsize(args.bam_path) > auto_mb * 1e6):
+            log.info("BAM > %.0f MB with a .bai: using --stream "
+                     "(--no-stream forces the resident pipeline)", auto_mb)
+            args.stream = True
+    if args.stream and args.region:
+        print("error: --stream does not take -r (use the default "
+              "pipeline for single-region runs)", file=sys.stderr)
+        return 2
     device = resolve_device(args.platform)
-    out = LAST_RUN = run(args.bam_path, args.ref_path, args.output, cfg,
-              input_vcf=args.input_vcf, input_region=args.region,
-              contigs=args.contigs, anno_path=args.annotation,
-              batched=args.batched, device=device)
+    if args.stream:
+        out = run_streaming(args.bam_path, args.ref_path, args.output, cfg,
+                            contigs=args.contigs, input_vcf=args.input_vcf,
+                            anno_path=args.annotation, resume=args.resume,
+                            batched=args.batched, device=device)
+    else:
+        out = run(args.bam_path, args.ref_path, args.output, cfg,
+                  input_vcf=args.input_vcf, input_region=args.region,
+                  contigs=args.contigs, anno_path=args.annotation,
+                  resume=args.resume, batched=args.batched, device=device)
+    LAST_RUN = out
     print(f"wrote {out.n_records} records to {out.vcf_path} "
           f"({out.n_phased_sites} phased sites, {out.n_candidates} candidates, "
           f"{out.n_assigned_reads}/{out.n_fragments} reads haplotagged) "
@@ -219,6 +240,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"wrote index to {build_bai(out.phased_bam_path)}")
     print(f"split-mode regions kept: {out.n_split_kept}, "
           f"recomputed in f64: {out.n_f64_reruns}")
+    if out.n_degraded_placements:
+        print(f"phase problems of card size run on the host: "
+              f"{out.n_degraded_placements}")
     from .pipeline.engine import STAGE_COUNTS
     for k, v in out.stage_seconds.items():
         print(f"  count {k}: {int(v)}" if k in STAGE_COUNTS

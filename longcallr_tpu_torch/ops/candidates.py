@@ -25,7 +25,7 @@ import torch
 
 from ..config import CallerConfig
 from ..tiles.pileup import PileupTensors
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, small_problem_device
 
 # tables and thresholds: the same numpy values as the JAX package
 # (binomial two-tailed test for n <= 30 from scipy, SOR threshold in f32)
@@ -390,7 +390,9 @@ def select_candidates(pileup: PileupTensors, cfg: CallerConfig,
     gather → dense-window passes → CandidateSet."""
     device = _device(device)
     P = pileup.length
-    cols = _pad_cols(_kernel_cols(pileup, exon_mask), _round_up(P))
+    Ppad = _round_up(P)
+    cols = _pad_cols(_kernel_cols(pileup, exon_mask), Ppad)
+    device = small_problem_device(Ppad * 16, device)
     out = candidate_kernel(_to_device(cols, device), cfg)
     out = {k: v[:P].cpu().numpy() for k, v in out.items()}
     return _candidates_from_out(pileup, out, cfg)
@@ -431,8 +433,9 @@ def select_candidates_batched(pileups: List[PileupTensors],
         Ppad = _round_up(max(1, int(np.sum(lens))))
         cols = _pad_cols({k: np.concatenate([c[k] for c in cols_list])
                           for k in cols_list[0]}, Ppad)
+        dev = small_problem_device(Ppad * 16, device)
         out = {k: v.cpu().numpy()
-               for k, v in candidate_kernel(_to_device(cols, device),
+               for k, v in candidate_kernel(_to_device(cols, dev),
                                             cfg).items()}
         off = 0
         for pl, P in zip(group, lens):

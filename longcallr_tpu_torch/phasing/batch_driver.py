@@ -14,9 +14,12 @@ region's own random stream consumed in the order of the per-region path
 order with its NaN polarity, the enumeration keep-best, the safety net and
 the stage counters (beside them a census: ``phase_buckets``,
 ``phase_enum_buckets`` and ``phase_single_regions`` count the iterative
-buckets, the enumeration buckets and the regions phased alone). What does not: every bucket runs on the one ``device``
-given (no work-based routing to the host, no mesh), and the bucket's cells
-travel in their 2-byte form.
+buckets, the enumeration buckets and the regions phased alone), and the
+placement by work: one router call per bucket
+(``utils/device.phase_problem_device``), and a bucket of little work on a
+card run goes member by member through the per-region path on the host.
+What does not: there is no mesh, and the bucket's cells travel in their
+2-byte form.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from ..config import CallerConfig
 from ..ops.candidates import CandidateSet
 from ..parallel import mesh as M
 from ..pipeline.engine import stage_add
-from ..utils.device import resolve_device
+from ..utils.device import phase_problem_device, resolve_device
 from . import kernels_fast as KF
 from . import optimize as O
 from . import rng as R
@@ -158,6 +161,23 @@ def _safety_net(split: bool) -> bool:
                 and not O.USE_F32_KERNELS)
 
 
+def _placed_on_host(group: List[_Prepared], cfg: CallerConfig, work: int,
+                    device: torch.device,
+                    out: List[Optional[PhaseState]]) -> bool:
+    """The bucket's one router call. A bucket of little work on a card run
+    is phased here, member by member on the per-region path on the host
+    (byte-equal by the batched == per-region seed contract, and without a
+    bucket program's launches), and True is returned."""
+    placed = phase_problem_device(work, device)
+    if placed == device:
+        return False
+    for it in group:
+        out[it.index] = O.phase_region_on(it.frags, it.cands, cfg, it.seed,
+                                          it.apply_ds, placed,
+                                          O.split_mode(placed))
+    return True
+
+
 def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
                        I0: int, device: torch.device,
                        out: List[Optional[PhaseState]]) -> None:
@@ -170,6 +190,9 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
             _phase_enum_bucket(group[i:i + bmax], cfg, K, I0, device, out)
         return
     B = len(group)
+    C_est = enumeration_order(I0).shape[0]
+    if _placed_on_host(group, cfg, B * C_est * K * I_pad, device, out):
+        return
     stage_add("phase_enum_buckets", 1)
     p, bq, read_base, site_mask = _fill_cells(group, K, I_pad)
     eta0 = np.ones((B, I_pad), np.float64)
@@ -264,6 +287,9 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         return
 
     B = len(group)
+    max_rounds = max(it.frags.p.shape[1] // 4 + 1 for it in group)
+    if _placed_on_host(group, cfg, B * K * I_pad * max_rounds, device, out):
+        return
     stage_add("phase_buckets", 1)
     conserved = np.zeros((B, I_pad), bool)
     sigma0 = np.zeros((B, K), np.float64)

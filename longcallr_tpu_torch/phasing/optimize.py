@@ -37,7 +37,7 @@ import torch
 from ..config import CallerConfig
 
 from ..ops.candidates import CandidateSet
-from ..utils.device import resolve_device
+from ..utils.device import phase_problem_device, resolve_device
 from . import kernels_fast as KF
 from . import rng as R
 from .fragments import FragmentMatrix
@@ -609,15 +609,37 @@ def phase_region(frags: FragmentMatrix, cands: CandidateSet,
                  cfg: CallerConfig, seed: int,
                  apply_downsampling: bool = False,
                  device: Optional[torch.device] = None) -> PhaseState:
-    """Run the full phase() optimization for one region on ``device``
-    (``None``: the CUDA device, and it raises where there is none).
+    """Run the full phase() optimization for one region of a run on
+    ``device`` (``None``: the CUDA device, and it raises where there is
+    none). A region of little work is placed on the host
+    (utils/device.phase_problem_device; work = cells x rounds, the per-
+    config ascents playing the rounds' part on the enumeration path).
     Returns the final state as host numpy, sliced back to true sizes."""
     device = resolve_device() if device is None else torch.device(device)
     K0, I0 = frags.p.shape
     if I0 == 0:
         return PhaseState(np.zeros(K0), np.zeros(0), np.zeros(0))
-    st = _phase_region_padded(frags, cands, cfg, seed, apply_downsampling,
-                              torch.device(device)).to_numpy()
+    K, I_pad = _bucket(max(1, K0)), _bucket(max(1, I0))
+    if I0 <= cfg.max_enum_snps:
+        work = (1 << min(I0, 40)) * K * I_pad
+    else:
+        work = K * I_pad * (I0 // 4 + 1)
+    device = phase_problem_device(work, device)
+    return phase_region_on(frags, cands, cfg, seed, apply_downsampling,
+                           device, split_mode(device))
+
+
+def phase_region_on(frags: FragmentMatrix, cands: CandidateSet,
+                    cfg: CallerConfig, seed: int, apply_downsampling: bool,
+                    device: torch.device, split: bool) -> PhaseState:
+    """phase() for one region on exactly ``device`` in the given mode, past
+    the placement: what ``phase_region`` runs once it has routed, and what
+    a bucket placed on the host runs for each of its members."""
+    K0, I0 = frags.p.shape
+    st = _phase_region_padded_impl(
+        frags, cands, cfg, seed, apply_downsampling, K0, I0,
+        _bucket(max(1, K0)), _bucket(max(1, I0)), torch.device(device),
+        split).to_numpy()
     return PhaseState(st.sigma[:K0], st.delta[:I0], st.eta[:I0])
 
 
@@ -627,24 +649,9 @@ def phase_region_f64(frags: FragmentMatrix, cands: CandidateSet,
     """The safety net's recompute of one region: the whole phase() in f64
     on ``device``, counted in N_F64_RERUNS — what the per-region path does
     for a split-mode result whose margins are inside the bound."""
-    K0, I0 = frags.p.shape
     _note(kept=False)
-    st = _phase_region_padded_impl(
-        frags, cands, cfg, seed, apply_downsampling, K0, I0,
-        _bucket(max(1, K0)), _bucket(max(1, I0)), torch.device(device),
-        False).to_numpy()
-    return PhaseState(st.sigma[:K0], st.delta[:I0], st.eta[:I0])
-
-
-def _phase_region_padded(frags: FragmentMatrix, cands: CandidateSet,
-                         cfg: CallerConfig, seed: int,
-                         apply_downsampling: bool,
-                         device: torch.device) -> PhaseState:
-    K0, I0 = frags.p.shape
-    K, I_pad = _bucket(max(1, K0)), _bucket(max(1, I0))
-    return _phase_region_padded_impl(frags, cands, cfg, seed,
-                                     apply_downsampling, K0, I0, K, I_pad,
-                                     device, split_mode(device))
+    return phase_region_on(frags, cands, cfg, seed, apply_downsampling,
+                           device, False)
 
 
 def _phase_region_padded_impl(frags, cands, cfg, seed, apply_downsampling,

@@ -9,18 +9,24 @@ finalize, with the next wave's prepare and phasing overlapped and the
 phased BAM written behind the waves), deterministic (contig, start)-ordered
 merges, and the serial phased-BAM pass. ``batched=None`` (AUTO) takes the
 batched pipeline when there is more than one region. Both paths write the
-same bytes. Every device stage runs on the ``device`` given to ``run``;
-worker threads are handed it explicitly.
+same bytes. ``run_streaming`` is the whole-genome mode: one contig resident
+at a time (BAI-windowed loads), each contig through the same two paths, the
+next window loading and the last contig's records deflating under the
+current contig's compute. ``resume=True`` keeps a ``<prefix>.regions.ckpt``
+of completed regions (``pipeline/resume.py``) in both entry points. Every
+device stage runs on the ``device`` given to the entry point; worker
+threads are handed it explicitly.
 
 Environment knobs of the batched pipeline (the JAX package's, with its
 defaults): LONGCALLR_CAND_BATCH_COLS and LONGCALLR_WAVE_CELLS bound a
 wave, LONGCALLR_WAVE_OVERLAP=0 runs the waves strictly one after another,
 LONGCALLR_RESIDENT_WRITE_OVERLAP=0 writes the phased BAM at the end,
 LONGCALLR_FINALIZE_MT_CELLS fans the finalize of large regions out over
-threads.
+threads. LONGCALLR_STREAM_PREFETCH=0 runs the stream strictly one contig
+at a time.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--resume`` checkpoints, and the streaming and pod entry points.
+Not ported yet: the pod entry points (``cli.py`` raises
+``NotImplementedError`` naming their ROADMAP item).
 """
 
 from __future__ import annotations
@@ -37,22 +43,22 @@ import numpy as np
 import torch
 
 from ..config import CallerConfig
-from ..io.bam import (BamFile, BamWriter, tagged_record_indices,
-                      write_tagged_records)
+from ..io.bam import (BamFile, BamWriter, collect_tagged_bytes,
+                      tagged_record_indices, write_tagged_records)
 from ..io.fasta import FastaFile
 from ..io.vcf import load_input_candidates, write_vcf_header
 from ..phasing import optimize as _opt
 from ..tiles.regions import Region, extract_isolated_regions_parallel
+from ..utils import device as _device
+from ..utils import malloc_tune
 from ..utils.device import resolve_device
 from .annotation import intersect_gene_regions, parse_annotation
 from .engine import (STAGE_TOTALS, RegionResult, finalize_region,
                      import_external_candidates, prepare_region_fragments,
                      prepare_region_pileup, process_region, stage_add)
+from .resume import RegionCheckpoint, config_key
 
 log = logging.getLogger("longcallr_tpu_torch")
-
-# ROADMAP.md "torch port" queue item for what is not ported yet
-RESUME_ITEM = "ROADMAP.md torch port queue: --stream and --resume"
 
 
 @dataclass
@@ -71,6 +77,38 @@ class CallerOutputs:
     # by the safety net
     n_split_kept: int = 0
     n_f64_reruns: int = 0
+    # phase problems of card size that ran on the host because the run's
+    # device is the CPU (utils/device.py warns once)
+    n_degraded_placements: int = 0
+
+
+class _RunCounters:
+    """The process-wide stage totals, phase counters and placement counts
+    as they stood when a run began; ``finish`` writes what the run added
+    into its ``stage`` dict and returns the CallerOutputs counters. One
+    snapshot spans the whole run: a stream calls the region pipeline once
+    per contig."""
+
+    def __init__(self):
+        self._totals = dict(STAGE_TOTALS)
+        self._kept, self._reruns = _opt.N_SPLIT_KEPT, _opt.N_F64_RERUNS
+        self._placed = dict(_device.PLACEMENTS)
+        self._degraded = _device.DEGRADED_PLACEMENTS
+
+    def finish(self, stage: Dict[str, float]) -> Dict[str, int]:
+        # cumulative seconds of the per-region stages (summed over
+        # threads); the bucket phasing's phase_* seconds and counts keep
+        # the JAX package's names
+        for k, v in list(STAGE_TOTALS.items()):
+            name = k if k.startswith("phase_") else f"region_{k}"
+            stage[name] = v - self._totals.get(k, 0.0)
+        for where, n in _device.PLACEMENTS.items():
+            stage[f"phase_{where}_placed"] = n - self._placed[where]
+        return dict(
+            n_split_kept=_opt.N_SPLIT_KEPT - self._kept,
+            n_f64_reruns=_opt.N_F64_RERUNS - self._reruns,
+            n_degraded_placements=(_device.DEGRADED_PLACEMENTS
+                                   - self._degraded))
 
 
 class _ResidentWriteOverlap:
@@ -297,16 +335,16 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
     """Resident run on ``device`` (``None``: the CUDA device, and it raises
     where there is none).
 
+    ``resume=True`` keeps a <prefix>.regions.ckpt JSONL of completed
+    regions and skips them on restart.
+
     ``batched=None`` resolves to the batched pipeline when there is more
     than one region (only then does a bucket amortise its launches) and to
     the per-region loop otherwise."""
-    if resume:
-        raise NotImplementedError(f"--resume not ported ({RESUME_ITEM})")
     device = resolve_device() if device is None else torch.device(device)
     t0 = time.monotonic()
     stage: Dict[str, float] = {}
-    totals0 = dict(STAGE_TOTALS)
-    kept0, reruns0 = _opt.N_SPLIT_KEPT, _opt.N_F64_RERUNS
+    counters = _RunCounters()
     # -r chr:start-end + a .bai beside the BAM → BAI-windowed load
     window = None
     if input_region is not None:
@@ -327,11 +365,18 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
                         if input_vcf is not None else None)
 
     t2 = time.monotonic()
+    ckpt = RegionCheckpoint(output_prefix + ".regions.ckpt" if resume else None,
+                            key=config_key(cfg, input_vcf, anno_path))
+    if ckpt.n_done:
+        log.info("resume: %d regions already completed", ckpt.n_done)
     # one region per pool worker, single-threaded inside (the rayon layout)
     cfg_task = (cfg.replace(threads=1)
                 if cfg.threads > 1 and len(regions) > 1 else cfg)
 
     def work(reg: Region) -> RegionResult:
+        done = ckpt.get(reg)
+        if done is not None:
+            return done
         ref_seq = fasta.fetch(reg.chr)
         exon_mask = None
         if cfg.exon_only and reg.gene_id is not None:
@@ -344,6 +389,7 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
         if res.n_fragments > 0:
             log.info("region %s: %d fragments, %d candidates",
                      reg, res.n_fragments, res.n_candidates)
+        ckpt.put(res)
         return res
 
     # warm the per-contig reference cache serially to avoid duplicate loads
@@ -364,15 +410,19 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
     # the partial .phased.bam — the serial path would have produced none);
     # after finish() returns the file is complete and must not be unlinked
     try:
-        if batched:
-            results = _run_batched(bam, fasta, regions, cfg, input_candidates,
-                                   exon_regions, device,
-                                   on_wave=(ov.wave_done if ov else None))
-        elif cfg.threads > 1 and len(regions) > 1:
-            with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
-                results = list(ex.map(work, regions))
-        else:
-            results = [work(r) for r in regions]
+        try:
+            if batched:
+                results = _run_batched(bam, fasta, regions, cfg,
+                                       input_candidates, exon_regions, ckpt,
+                                       device,
+                                       on_wave=(ov.wave_done if ov else None))
+            elif cfg.threads > 1 and len(regions) > 1:
+                with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+                    results = list(ex.map(work, regions))
+            else:
+                results = [work(r) for r in regions]
+        finally:
+            ckpt.close()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         stage["regions_pipeline"] = time.monotonic() - t2
@@ -433,12 +483,6 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
         stage["phased_bam"] = time.monotonic() - t4
 
     stage["total"] = time.monotonic() - t0
-    # cumulative seconds of the per-region stages (summed over threads);
-    # the bucket phasing's phase_* seconds and counts keep the JAX
-    # package's names
-    for k, v in list(STAGE_TOTALS.items()):
-        name = k if k.startswith("phase_") else f"region_{k}"
-        stage[name] = v - totals0.get(k, 0.0)
     n_assigned = sum(1 for _, res in results_sorted
                      for v in res.read_assignments.values() if v != 0)
     return CallerOutputs(vcf_path=vcf_path, phased_bam_path=phased_bam_path,
@@ -447,23 +491,255 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
                          n_phased_sites=n_phased, n_assigned_reads=n_assigned,
                          n_fragments=sum(r.n_fragments for _, r in results_sorted),
                          n_candidates=sum(r.n_candidates for _, r in results_sorted),
-                         n_split_kept=_opt.N_SPLIT_KEPT - kept0,
-                         n_f64_reruns=_opt.N_F64_RERUNS - reruns0)
+                         **counters.finish(stage))
+
+
+def run_streaming(bam_path: str, ref_path: str, output_prefix: str,
+                  cfg: CallerConfig,
+                  contigs: Optional[Sequence[str]] = None,
+                  input_vcf: Optional[str] = None,
+                  anno_path: Optional[str] = None,
+                  resume: bool = False,
+                  batched: Optional[bool] = None,
+                  device: Optional[torch.device] = None) -> CallerOutputs:
+    """Whole-genome mode on ``device`` (``None``: the CUDA device, and it
+    raises where there is none): one contig resident at a time.
+
+    Requires a ``.bai``: each contig's records are loaded with a BAI-windowed
+    read (io/bam.py::_load_window), regions are discovered and processed for
+    that contig, its VCF lines and phased records are written out, and the
+    window + reference contig are released before the next one. Peak host
+    memory is one contig's reads + reference instead of the whole BAM; on
+    the card a contig's buckets are freed as its waves end, so the device
+    peak does not grow with the number of contigs.
+
+    ``batched=None`` resolves per contig: the batched pipeline when the
+    contig has more than one region. The stage counters of
+    ``CallerOutputs`` are summed over the contigs; the stream's own stages
+    are ``window_load``, ``discovery``, ``bam_emit`` and
+    ``bam_write_drain``."""
+    device = resolve_device() if device is None else torch.device(device)
+    t0 = time.monotonic()
+    stage: Dict[str, float] = {}
+    counters = _RunCounters()
+    if not os.path.exists(bam_path + ".bai"):
+        raise ValueError(
+            f"streaming mode needs a BAM index: {bam_path}.bai not found "
+            "(build one with longcallr_tpu_torch.io.bai.build_bai)")
+    fasta = FastaFile(ref_path)
+    input_candidates = (load_input_candidates(input_vcf)
+                        if input_vcf is not None else None)
+    gene_regions: Dict[str, List[Region]] = {}
+    exon_regions: Dict[str, List[Tuple[int, int]]] = {}
+    if anno_path:
+        gene_regions, exon_regions = parse_annotation(anno_path)
+    if cfg.exon_only and not anno_path:
+        raise ValueError("exon_only is set, but annotation file is not provided")
+    vcf_path = output_prefix + ".vcf"
+    phased_bam_path = (None if cfg.no_bam_output
+                       else output_prefix + ".phased.bam")
+    ckpt = RegionCheckpoint(output_prefix + ".regions.ckpt" if resume else None,
+                            key=config_key(cfg, input_vcf, anno_path))
+    if ckpt.n_done:
+        log.info("resume: %d regions already completed", ckpt.n_done)
+    writer = None
+    n_regions_total = n_records = n_phased = n_tagged = 0
+    n_assigned = n_frag_total = n_cand_total = 0
+    # one-ahead window prefetch: contig N+1's BAI-windowed load (IO +
+    # native inflate, GIL-released) runs under contig N's compute. The
+    # loop's steady state is [prefetch N+1] ∥ [compute N] ∥ [deflate N-1];
+    # transient memory is one extra window. LONGCALLR_STREAM_PREFETCH=0
+    # restores the strictly-one-contig-resident loop.
+    todo_contigs = [(c, l) for c, l in fasta.contig_lengths
+                    if not contigs or c in contigs]
+    prefetch_on = os.environ.get("LONGCALLR_STREAM_PREFETCH", "1") != "0"
+    load_pool = ThreadPoolExecutor(max_workers=1) if prefetch_on else None
+    # single ordered writer thread: BGZF deflate of contig N's phased
+    # records overlaps contig N+1's compute (submissions execute in order,
+    # so the byte stream is identical to inline writes). Gated by the same
+    # switch as the prefetch: =0 restores the strictly serial loop. The
+    # writer thread is handed host bytes only, never a tensor.
+    write_pool = ThreadPoolExecutor(max_workers=1) if prefetch_on else None
+    bam_writes: List = []
+
+    def _load_window(chrom: str, clen: int) -> BamFile:
+        return BamFile(bam_path, threads=max(1, cfg.threads),
+                       region=(chrom, 0, clen))
+
+    in_flight_exc = False
+    try:
+        with open(vcf_path, "w") as vf:
+            write_vcf_header(vf, fasta.contig_lengths)
+            nxt = (load_pool.submit(_load_window, *todo_contigs[0])
+                   if load_pool and todo_contigs else None)
+            for ci, (chrom, clen) in enumerate(todo_contigs):
+                _t = time.monotonic()
+                if nxt is not None:
+                    win = nxt.result()
+                    nxt = (load_pool.submit(_load_window, *todo_contigs[ci + 1])
+                           if ci + 1 < len(todo_contigs) else None)
+                else:
+                    win = _load_window(chrom, clen)
+                stage["window_load"] = stage.get("window_load", 0.0) + (
+                    time.monotonic() - _t)
+                if win.n_records == 0:
+                    continue
+                if writer is None and phased_bam_path:
+                    writer = BamWriter(phased_bam_path, win.references,
+                                       win.lengths,
+                                       header_text=win.header_text,
+                                       level=cfg.bam_compression_level,
+                                       threads=max(1, cfg.threads))
+                _t = time.monotonic()
+                regions = extract_isolated_regions_parallel(
+                    win, [(chrom, clen)], cfg, contigs=[chrom])
+                stage["discovery"] = stage.get("discovery", 0.0) + (
+                    time.monotonic() - _t)
+                if cfg.exon_only:
+                    regions = intersect_gene_regions(regions, gene_regions,
+                                                     merge=True)
+                n_regions_total += len(regions)
+                ref_seq = fasta.fetch(chrom)
+
+                use_batched = (len(regions) > 1 if batched is None
+                               else batched)
+                if use_batched and len(regions) > 0:
+                    # per-contig batched pipeline (the one run() takes)
+                    results = _run_batched(win, fasta, regions, cfg,
+                                           input_candidates, exon_regions,
+                                           ckpt, device)
+                else:
+                    cfg_task = (cfg.replace(threads=1)
+                                if cfg.threads > 1 and len(regions) > 1
+                                else cfg)
+
+                    def work(reg: Region) -> RegionResult:
+                        done = ckpt.get(reg)
+                        if done is not None:
+                            return done
+                        exon_mask = None
+                        if cfg.exon_only and reg.gene_id is not None:
+                            exon_mask = _exon_mask_for(reg, exon_regions)
+                            if exon_mask is None:
+                                return RegionResult(reg, [], {}, {}, 0, 0)
+                        res = process_region(win, reg, ref_seq, cfg_task,
+                                             device,
+                                             input_candidates=input_candidates,
+                                             exon_mask=exon_mask)
+                        ckpt.put(res)
+                        return res
+
+                    if cfg.threads > 1 and len(regions) > 1:
+                        with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
+                            results = list(ex.map(work, regions))
+                    else:
+                        results = [work(r) for r in regions]
+
+                for res in results:
+                    n_frag_total += res.n_fragments
+                    n_cand_total += res.n_candidates
+                    n_assigned += sum(1 for v in
+                                      res.read_assignments.values() if v != 0)
+                    for line in res.vcf_lines:
+                        vf.write(line + "\n")
+                        n_records += 1
+                        gt = line.split("\t")[9].split(":", 1)[0]
+                        if gt in ("0|1", "1|0"):
+                            n_phased += 1
+                if writer is not None:
+                    read_assignments: Dict[str, int] = {}
+                    read_phasesets: Dict[str, int] = {}
+                    for res in results:
+                        for k, v in res.read_assignments.items():
+                            read_assignments.setdefault(k, v)
+                        for k, v in res.phase_sets.items():
+                            read_phasesets.setdefault(k, v)
+                    _t = time.monotonic()
+                    if write_pool is not None:
+                        # backpressure: at most ONE contig's payloads
+                        # outstanding (the previous contig's deflate has
+                        # normally finished under this contig's compute) —
+                        # keeps the documented one-extra-contig memory
+                        # contract when deflate is slower than compute
+                        for f in bam_writes:
+                            f.result()
+                        bam_writes.clear()
+                    for reg in regions:
+                        ridxs = tagged_record_indices(
+                            win, reg.chr, reg.start, reg.end).tolist()
+                        # assemble synchronously (cheap, owns its bytes),
+                        # deflate+write on the single ordered writer thread
+                        # so the BGZF compression of contig N overlaps
+                        # contig N+1's window load / pipeline — the window
+                        # is still evicted right below (memory contract
+                        # unchanged up to one contig's payload bytes)
+                        payload, cnt = collect_tagged_bytes(
+                            win, ridxs, read_assignments, read_phasesets)
+                        n_tagged += cnt
+                        if payload and write_pool is not None:
+                            bam_writes.append(
+                                write_pool.submit(writer._w.write, payload))
+                        elif payload:
+                            writer._w.write(payload)
+                    stage["bam_emit"] = stage.get("bam_emit", 0.0) + (
+                        time.monotonic() - _t)
+                del win
+                fasta.evict(chrom)
+                # return the evicted contig's freed heap to the OS: tune()
+                # disables glibc auto-trim to keep freed blocks warm, which
+                # is right WITHIN a contig but accumulates every contig's
+                # working set into the peak RSS across a whole-genome run
+                malloc_tune.trim()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    except BaseException:
+        in_flight_exc = True
+        raise
+    finally:
+        ckpt.close()
+        if load_pool is not None:
+            load_pool.shutdown(wait=True)
+        _t = time.monotonic()
+        drain_err = None
+        for f in bam_writes:
+            try:
+                f.result()      # drain (and surface) pending deflate work
+            except BaseException as e:   # keep closing; re-raise after
+                drain_err = drain_err or e
+        if write_pool is not None:
+            write_pool.shutdown()
+        if writer is not None:
+            writer.close()      # always append the BGZF EOF block
+        if bam_writes:
+            stage["bam_write_drain"] = time.monotonic() - _t
+        if drain_err is not None and not in_flight_exc:
+            # surface a failed background write, but never mask an
+            # exception already propagating out of the contig loop
+            raise drain_err
+    if writer is None:
+        phased_bam_path = None      # no records anywhere → no BAM written
+    stage["total"] = time.monotonic() - t0
+    return CallerOutputs(vcf_path=vcf_path, phased_bam_path=phased_bam_path,
+                         n_regions=n_regions_total, n_records=n_records,
+                         n_reads_tagged=n_tagged, stage_seconds=stage,
+                         n_phased_sites=n_phased, n_assigned_reads=n_assigned,
+                         n_fragments=n_frag_total, n_candidates=n_cand_total,
+                         **counters.finish(stage))
 
 
 def _run_batched(bam, fasta, regions, cfg, input_candidates, exon_regions,
-                 device: torch.device, on_wave=None):
+                 ckpt: RegionCheckpoint, device: torch.device, on_wave=None):
     """Three-stage batched pipeline: threaded host prepare → bucketed
     device phasing (phasing/batch_driver.py) → host finalize.
 
     ``on_wave``: called with a list of (region_index, RegionResult) pairs
-    as each wave finalizes (and once up front for skipped regions) — the
-    overlapped phased-BAM writer's feed.
+    as each wave finalizes (and once up front for checkpointed and skipped
+    regions) — the overlapped phased-BAM writer's feed.
 
-    Checkpoint seam: ``--resume`` is not ported. Its checkpoint would be
-    read in the triage loop below (a completed region drops out of
-    ``todo_prep``) and written where a wave's results are stored, in wave
-    order."""
+    ``ckpt``: a region it holds drops out in the triage loop; a wave's
+    results are put where they are stored, in wave order, so a crash loses
+    the waves not yet finalized (with the wave overlap on, at most the one
+    finalizing and the one phasing)."""
     from ..ops.candidates import CAND_BATCH_COLS, select_candidates_batched
     from ..phasing.batch_driver import phase_regions_batched
 
@@ -476,9 +752,13 @@ def _run_batched(bam, fasta, regions, cfg, input_candidates, exon_regions,
     # nested thread oversubscription
     cfg_task = cfg.replace(threads=1) if pooled else cfg
 
-    # triage: exon-skipped regions drop out up front
+    # triage: checkpointed / exon-skipped regions drop out up front
     todo_prep: List[Tuple[int, Optional[np.ndarray]]] = []
     for i, reg in enumerate(regions):
+        done = ckpt.get(reg)
+        if done is not None:
+            results[i] = done
+            continue
         exon_mask = None
         if cfg.exon_only and reg.gene_id is not None:
             exon_mask = _exon_mask_for(reg, exon_regions)
@@ -632,8 +912,9 @@ def _run_batched(bam, fasta, regions, cfg, input_candidates, exon_regions,
             # numpy dispatch dominates and threads only add contention — so
             # only the big regions go to the pool. Per-region results are
             # independent (own rng stream, own table slot — assign.py's
-            # thread-local cache); results are stored in wave order. Host
-            # data only: nothing here touches the device.
+            # thread-local cache); results are stored, and put into the
+            # checkpoint, in wave order. Host data only: nothing here
+            # touches the device.
             big = {i for i in todo
                    if prepared[i][1].n_frags * max(prepared[i][0].n, 1)
                    >= finalize_mt_cells}
@@ -645,10 +926,12 @@ def _run_batched(bam, fasta, regions, cfg, input_candidates, exon_regions,
                     for i in todo:
                         results[i] = (futs[i].result() if i in big
                                       else _finalize_one(i))
+                        ckpt.put(results[i])
                         prepared[i] = None
             else:
                 for i in todo:
                     results[i] = _finalize_one(i)
+                    ckpt.put(results[i])
                     prepared[i] = None
             if on_wave is not None and todo:
                 on_wave([(i, results[i]) for i in todo])

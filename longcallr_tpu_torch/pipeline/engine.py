@@ -39,11 +39,14 @@ STAGE_TOTALS: Dict[str, float] = defaultdict(float)
 _STAGE_LOCK = threading.Lock()
 
 
-# keys of STAGE_TOTALS that count events, not seconds: the bucket phasing's
-# refusals, exact recomputes and bucket census
+# keys of a run's stage dict that count events, not seconds: the bucket
+# phasing's refusals, exact recomputes and bucket census (in STAGE_TOTALS),
+# and the phase problems placed on the host and on the card (counted by
+# utils/device.py, added by the caller)
 STAGE_COUNTS = frozenset((
     "phase_fused_refused", "phase_blockflip_exact", "phase_safety_recompute",
-    "phase_buckets", "phase_enum_buckets", "phase_single_regions"))
+    "phase_buckets", "phase_enum_buckets", "phase_single_regions",
+    "phase_host_placed", "phase_card_placed"))
 
 
 def stage_add(key: str, val: float) -> None:

@@ -240,7 +240,18 @@ def test_write_overlap_refuses_regions_out_of_order(genome, tmp_path):
 
 
 def test_resume_still_raises(genome, tmp_path):
+    """resume=True is ported: the batched run keeps a checkpoint and writes
+    the bytes of a run without one (tests/test_torch_stream_resume.py holds
+    the rest). What still raises is a checkpoint that cannot be opened."""
     bam, fa = genome
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(bam, fa, str(tmp_path / "r"), preset("hifi-masseq"), resume=True,
+    cfg = preset("hifi-masseq").replace(threads=2)
+    out = run(bam, fa, str(tmp_path / "r"), cfg, resume=True, batched=True,
+              device=CPU)
+    base = run(bam, fa, str(tmp_path / "b"), cfg, batched=True, device=CPU)
+    assert _payloads(out) == _payloads(base)
+    with open(str(tmp_path / "r.regions.ckpt")) as f:
+        assert len(f.read().splitlines()) == 1 + out.n_regions
+    assert not os.path.exists(str(tmp_path / "b.regions.ckpt"))
+    with pytest.raises(OSError):
+        run(bam, fa, str(tmp_path / "no_such_dir" / "r"), cfg, resume=True,
             batched=True, device=CPU)

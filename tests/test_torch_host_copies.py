@@ -549,3 +549,51 @@ def test_adopt(sim_bam, what):
             adopt(SimpleNamespace(x=1))
         with pytest.raises(TypeError):
             adopt(3)
+
+
+# --- copies held equal to their originals, source line by source line ------
+
+def _source_lines(path, skip_from=None, skip_func=None):
+    """The module's code lines without its docstring; with ``skip_from``,
+    also without the span from the first line that starts with it to the
+    end of the function ``skip_func``."""
+    import ast
+    with open(path) as f:
+        text = f.read()
+    tree = ast.parse(text)
+    lines = text.splitlines()
+    drop = set(range(tree.body[0].lineno - 1, tree.body[0].end_lineno))
+    if skip_from:
+        first = next(i for i, l in enumerate(lines)
+                     if l.startswith(skip_from))
+        func = next(n for n in tree.body if isinstance(n, ast.FunctionDef)
+                    and n.name == skip_func)
+        assert first < func.lineno
+        drop |= set(range(first, func.end_lineno))
+    return [l for i, l in enumerate(lines) if i not in drop]
+
+
+@pytest.mark.parametrize("rel,skip", [
+    ("utils/intervals.py", None), ("utils/stats.py", None),
+    ("pipeline/resume.py", None), ("analysis/asj.py", None),
+    ("analysis/asj_to_bed.py", None), ("analysis/__init__.py", None),
+    ("analysis/ase.py", ("# tri-state", "_fork_pool_ok"))])
+def test_host_module_copies_equal_their_originals(rel, skip):
+    """intervals, stats, resume and the analysis modules: the port's copy
+    is the original's code but for the module docstring (which names the
+    source) and, in ase.py, the fork gate (which looks at CUDA in place of
+    live JAX backends). Relative imports resolve inside each package."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(root, pkg, rel)
+             for pkg in ("longcallr_tpu", "longcallr_tpu_torch")]
+    if rel.endswith("__init__.py"):
+        assert os.path.getsize(paths[0]) == os.path.getsize(paths[1]) == 0
+        return
+    a, b = (_source_lines(p, *(skip or ())) for p in paths)
+    assert a == b and len(a) > 15
+    with open(paths[1]) as f:
+        assert f"Copied from ``longcallr_tpu/{rel}``" in f.read()
+    if skip:
+        with open(paths[1]) as f:
+            gate = f.read().split("def _fork_pool_ok")[1].split("\ndef ")[0]
+        assert "is_initialized" in gate and "jax" not in gate

@@ -3,8 +3,10 @@ unimportable, and no file of it names either in an import.
 
 The first test runs in a subprocess whose import machinery refuses both
 names. Every module of ``longcallr_tpu_torch`` is imported there, then the
-CLI calls a small simulated BAM on the CPU and lists its regions
-(``--get-blocks``), both to exit code 0.
+CLI calls a small simulated BAM on the CPU, lists its regions
+(``--get-blocks``), calls it again with ``--stream --resume`` (the same VCF
+bytes), and the ASE and ASJ tools write their tables from the streamed
+phased BAM, all to exit code 0.
 """
 
 import os
@@ -62,6 +64,29 @@ rc = cli.main(base + ["--platform", "cpu", "--index-output"])
 assert rc == 0 and cli.LAST_RUN.n_records > 0, rc
 rc = cli.main(base + ["--get-blocks"])
 assert rc == 0, rc
+resident = open(tmp + "/out.vcf", "rb").read()
+
+# --stream with --resume (needs a .bai beside the input), then the ASE and
+# ASJ tables of the phased BAM it wrote
+from longcallr_tpu_torch.analysis import ase, asj
+from longcallr_tpu_torch.io.bai import build_bai
+build_bai(bam)
+sbase = base[:4] + ["-o", tmp + "/stream"] + base[6:]
+rc = cli.main(sbase + ["--platform", "cpu", "--stream", "--resume"])
+assert rc == 0 and "window_load" in cli.LAST_RUN.stage_seconds, rc
+assert open(tmp + "/stream.vcf", "rb").read() == resident
+attrs = 'gene_id "G1"; gene_type "protein_coding"; gene_name "GENE1";'
+with open(tmp + "/g.gtf", "w") as f:
+    f.write(f"chrS\thv\tgene\t1\t9000\t.\t+\t.\t{attrs}\n")
+    f.write(f'chrS\thv\texon\t1\t9000\t.\t+\t.\t{attrs} '
+            f'transcript_id "G1.t1";\n')
+rc = ase.main(["-b", tmp + "/stream.phased.bam", "-a", tmp + "/g.gtf", "-o",
+               tmp + "/tab", "--min_support", "5"])
+assert rc == 0, rc
+rc = asj.main(["-b", tmp + "/stream.phased.bam", "-a", tmp + "/g.gtf", "-f",
+               tmp + "/in.fa", "-o", tmp + "/tab", "-m", "5"])
+assert rc == 0, rc
+print("ASE", open(tmp + "/tab.ase.tsv").read().count("\n"))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("RAN", cli.LAST_RUN.n_records)
@@ -76,10 +101,15 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
     assert "IMPORTED" in res.stdout and "RAN" in res.stdout
     n_modules = len(list(pkgutil.walk_packages(
         longcallr_tpu_torch.__path__, "longcallr_tpu_torch.")))
-    assert f"IMPORTED {n_modules}" in res.stdout and n_modules >= 30
+    assert f"IMPORTED {n_modules}" in res.stdout and n_modules >= 39
     assert "chrS:" in res.stdout                      # --get-blocks
     assert os.path.exists(tmp_path / "out.vcf")
     assert os.path.exists(tmp_path / "out.phased.bam.bai")
+    # the stream, its checkpoint and the analysis tables
+    assert os.path.exists(tmp_path / "stream.regions.ckpt")
+    assert "ASE 2" in res.stdout                 # header and one gene
+    with open(tmp_path / "tab.asj.tsv") as f:
+        assert f.readline().startswith("#")
 
 
 _IMPORT = re.compile(
