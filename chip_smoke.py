@@ -102,7 +102,32 @@ package) and fails on the first check that does not hold:
  11. analysis — ASE and ASJ on a simulated phased BAM in this process,
                where CUDA is initialised: the fork gate is closed, the
                tables are written with threads=4 and equal threads=1's;
- 12. imports — neither jax nor any longcallr_tpu module was imported.
+ 12. pod     — (run right after phase 8, on its input) the stream input
+               through the CLI's pod branch with --stream: 2 processes of 4
+               threads on the one card (torch.distributed, gloo on
+               localhost), then 1 process of 8 threads; process 0's VCF
+               bytes and sorted HP/PS tags equal phase 8's stream run, every
+               worker launches both kernels, at shapes phase 2 checked (its
+               share of a contig as one bucket of 1 to 13 tables); wall,
+               reads/s and the 1-process/2-process ratio are printed;
+ 13. pod_resident — the genome workload through the pod branch with
+               --no-stream, 2 processes: byte-equal to a single run; the pod
+               flags given in part return 2;
+ 14. giant   — the reads-sharded ascent driven directly (one card gives
+               reads_devices no second device): one stream region (K 2048,
+               I 256, 50 rounds) through phase_region_sharded with the card
+               twice and four times as the "reads" axis and with 2 CPU
+               shards: equal states; one sharded ascent on each: equal
+               decisions, prob within 1e-9 relative; read_sharded_snp_sums
+               on the card against the CPU at 1e-12; no hand kernel
+               launched (f64 matmul); walls beside phase_region's;
+ 15. stats   — perturbation_phase_stats on one deep region in split mode:
+               state and prob equal perturbation_phase's, ascent trips > 0,
+               both kernels launched;
+ 16. profile — the genome workload with --profile-dir: the torch.profiler
+               trace holds both hand kernels' device kernels, and the bytes
+               equal a run without the flag;
+ 17. imports — neither jax nor any longcallr_tpu module was imported.
 
 The goldens of phase 4 and the enumeration workloads of phase 6 run with
 the placement off (everything on the card, as before there was one): at its
@@ -118,7 +143,9 @@ deep run, ``launches_per_region`` the per-region one,
 ``launches_one_wave`` the run of (f), ``launches_enum`` and
 ``launches_enum_per_region`` the two runs of (g), ``launches_enum_deep`` and
 ``launches_enum_deep_per_region`` the two of (i), ``launches_stream`` and
-``launches_stream_resident`` the two legs of phase 8; each timed shape lists
+``launches_stream_resident`` the two legs of phase 8,
+``launches_pod_2p_p0``, ``launches_pod_2p_p1`` and ``launches_pod_1p_p0``
+the workers of phase 12, ``launches_stats`` phase 15; each timed shape lists
 under ``launched_by`` the runs that launched the kernel there), the card's
 name and power limit (nvidia-smi), and last the result line.
 """
@@ -180,6 +207,11 @@ ENUM_LIMIT = (64, 8, 16, False, 1024)
 # of the same input: waves of 5)
 STREAM_WAVE = (5, 2048, 256, False)
 STREAM_TAIL = (3, 2048, 256, False)
+# what a pod worker launches on the stream input (phase pod): its share of a
+# contig's 13 loci as one bucket, of 1 to 13 tables; a region phased alone
+# (phase giant, and a shard's per-region fallback) is the bucket of 1
+STREAM_SHARES = [(b, 2048, 256, False) for b in range(1, 14)
+                 if b not in (STREAM_WAVE[0], STREAM_TAIL[0])]
 # rows of σ that carry a read at the deep and stream shapes (the rest is
 # padding, σ = 0)
 ACTIVE_ROWS = {DEEP: 4000, DEEP_BUCKET: 4000, DEEP_WAVE: 4000,
@@ -193,7 +225,7 @@ TIMED = {DEEP: "deep", DEEP_BUCKET: "deep_bucket", DEEP_WAVE: "deep_wave",
 # every shape phase_kernels holds against the plain versions: the main-path
 # shapes first, then unaligned ones
 CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, STREAM_WAVE, STREAM_TAIL,
-                  ENUM6_BUCKET, ENUM6_REGION,
+                  *STREAM_SHARES, ENUM6_BUCKET, ENUM6_REGION,
                   ENUM10_BUCKET, ENUM10_REGION, ENUM_RUN_BUCKET,
                   ENUM_RUN_REGION, ENUM_LIMIT,
                   (1, 37, 300, False), (1, 1025, 129, False),
@@ -219,14 +251,16 @@ def _launch_key(shape) -> tuple:
     return (B, K, I, shape[4] if len(shape) > 4 else 1)
 
 
-def _launched_shapes(what: str) -> dict:
-    """The shapes the run just made launched the kernels at, by kernel.
-    Fails if one of them is a shape that phase_kernels did not hold against
-    the plain version."""
+def _launched_shapes(what: str, seen=None) -> dict:
+    """The shapes the run just made launched the kernels at, by kernel (or
+    ``seen``: those another process reported). Fails if one of them is a
+    shape that phase_kernels did not hold against the plain version."""
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
 
     checked = {_launch_key(s) for s in CHECKED_SHAPES}
-    seen = {n: sorted(CK.LAUNCH_SHAPES[n]) for n in KERNEL_NAMES}
+    if seen is None:
+        seen = {n: sorted(CK.LAUNCH_SHAPES[n]) for n in KERNEL_NAMES}
+    seen = {n: sorted(tuple(s) for s in seen[n]) for n in KERNEL_NAMES}
     for n, shapes in seen.items():
         missing = [s for s in shapes if s not in checked]
         if missing:
@@ -1230,8 +1264,9 @@ def phase_stream(card: str, tmp: str):
     _emit("stream", card, reads=params["n_reads"], contigs=5,
           loci_per_contig=STREAM_LOCI, threads=8, generate_seconds=gen_s,
           equal=True, **legs)
-    return {"stream": runs["stream"][1],
-            "stream_resident": runs["resident"][1]}
+    return ({"stream": runs["stream"][1],
+             "stream_resident": runs["resident"][1]},
+            (bam, fa, params["n_reads"], runs["stream"][0]))
 
 
 def phase_resume(card: str, tmp: str) -> None:
@@ -1412,6 +1447,410 @@ def phase_analysis(card: str, dev, tmp: str) -> None:
           equal_to_threads_1=True)
 
 
+# one process of a pod on the card: the CLI's pod branch with the launch
+# counts set to 0 just before and reported just after, as a JSON line
+_POD_WORKER = r"""
+import json, sys, time
+port, pid, n, bam, fa, out, threads, mode = sys.argv[1:9]
+from longcallr_tpu_torch import cli
+from longcallr_tpu_torch.phasing import cuda_kernels as CK
+argv = ["-b", bam, "-f", fa, "-o", out, "-p", "hifi-masseq", "--platform",
+        "cuda", "-t", threads, mode, "--coordinator", f"localhost:{port}",
+        "--num-processes", n, "--process-id", pid]
+CK.reset_launches()
+t0 = time.monotonic()
+rc = cli.main(argv)
+wall = time.monotonic() - t0
+res = cli.LAST_RUN
+if not isinstance(res, dict):
+    res = {"n_records": res.n_records, "n_regions": res.n_regions,
+           "stage_seconds": res.stage_seconds}
+print(json.dumps({"worker": int(pid), "rc": rc, "caller_wall_seconds": wall,
+                  "launches": dict(CK.LAUNCHES),
+                  "launch_shapes": {k: sorted(v) for k, v in
+                                    CK.LAUNCH_SHAPES.items()},
+                  "summary": res}), flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _pod(tmp: str, label: str, n: int, bam: str, fa: str, threads: int,
+         mode: str) -> tuple:
+    """``n`` processes of one pod on the card (gloo on localhost), each in
+    a fresh interpreter. Returns (wall seconds from the first start to the
+    last exit, the workers' JSON reports by process id). Every worker must
+    exit 0 within 600 s; one that does not is killed and fails the phase."""
+    port = _free_port()
+    prefix = os.path.join(tmp, label)
+    procs, logs = [], []
+    t0 = time.monotonic()
+    try:
+        for pid in range(n):
+            log = open(os.path.join(tmp, f"{label}_{pid}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _POD_WORKER, str(port), str(pid),
+                 str(n), bam, fa, prefix, str(threads), mode],
+                cwd=HERE, stdout=log, stderr=subprocess.STDOUT))
+        for p in procs:
+            p.wait(timeout=600)
+        wall = time.monotonic() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = [l for l in text.splitlines() if l.startswith('{"worker"')]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"{label}: process {pid} exited "
+                                 f"{p.returncode}:\n{text[-3000:]}")
+        rep = json.loads(lines[-1])
+        if rep["rc"] != 0:
+            raise AssertionError(f"{label}: process {pid}: cli.main "
+                                 f"returned {rep['rc']}")
+        reports.append(rep)
+    return wall, prefix, reports
+
+
+def _records_and_tags(prefix: str):
+    from longcallr_tpu_torch.utils import goldens
+
+    return goldens.records_and_tags(prefix + ".vcf", prefix + ".phased.bam")
+
+
+def phase_pod(card: str, tmp: str, stream_input) -> dict:
+    """The pod on the card: the stream input through the CLI's pod branch
+    with --stream, 2 processes of 4 threads sharing the one card, then 1
+    process of 8 threads. Process 0's VCF bytes and sorted HP/PS tags must
+    equal phase stream's single-process run; every worker must launch both
+    kernels, at shapes that phase_kernels checked. Returns (launch counts,
+    launch shapes) by worker."""
+    bam, fa, n_reads, stream_prefix = stream_input
+    with open(stream_prefix + ".vcf", "rb") as f:
+        want_vcf = f.read()
+    want = _records_and_tags(stream_prefix)
+    legs, runs = {}, {}
+    for n, threads in ((2, 4), (1, 8)):
+        label = f"pod_{n}p"
+        wall, prefix, reports = _pod(tmp, label, n, bam, fa, threads,
+                                     "--stream")
+        with open(prefix + ".vcf", "rb") as f:
+            if f.read() != want_vcf:
+                raise AssertionError(f"{label}: VCF bytes differ from the "
+                                     f"single-process stream run")
+        if _records_and_tags(prefix) != want:
+            raise AssertionError(f"{label}: HP/PS tags differ")
+        workers = []
+        for rep in reports:
+            pid = rep["worker"]
+            for name in KERNEL_NAMES:
+                if rep["launches"][name] <= 0:
+                    raise AssertionError(f"{label}: process {pid} did not "
+                                         f"launch {name}")
+            shapes = _launched_shapes(f"{label}, process {pid}",
+                                      rep["launch_shapes"])
+            runs[f"{label}_p{pid}"] = (rep["launches"], shapes)
+            workers.append({"process": pid, "threads": threads,
+                            "caller_wall_seconds": rep["caller_wall_seconds"],
+                            "launches": rep["launches"],
+                            "launch_shapes": shapes,
+                            "summary": rep["summary"]})
+        if n > 1 and reports[0]["summary"].get("n_retried"):
+            raise AssertionError(f"{label}: regions were retried: "
+                                 f"{reports[0]['summary']}")
+        caller = max(w["caller_wall_seconds"] for w in workers)
+        legs[label] = {"processes": n, "wall_seconds": wall,
+                       "reads_per_second": n_reads / wall,
+                       "caller_wall_seconds": caller,
+                       "caller_reads_per_second": n_reads / caller,
+                       "workers": workers, "equal_to_stream_run": True}
+    ratio = {"wall_1p_over_2p": legs["pod_1p"]["wall_seconds"]
+             / legs["pod_2p"]["wall_seconds"],
+             "caller_wall_1p_over_2p": legs["pod_1p"]["caller_wall_seconds"]
+             / legs["pod_2p"]["caller_wall_seconds"]}
+    _emit("pod", card, reads=n_reads, input="stream", scaling=ratio, **legs)
+    return runs
+
+
+def phase_pod_resident(card: str, tmp: str) -> None:
+    """The genome workload through the pod branch resident (--no-stream), 2
+    processes on the card, byte-equal to a single-process run of it; and
+    the pod flags given in part return 2."""
+    from longcallr_tpu_torch import cli
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+
+    gbam, gfa = os.path.join(tmp, "genome.bam"), os.path.join(tmp, "genome.fa")
+    params = make_genome_workload(gbam, gfa)
+    want = _payloads(_cli_run(tmp, "pod_resident_single", gbam, gfa,
+                              extra=["--no-stream"])[0])
+    wall, prefix, reports = _pod(tmp, "pod_resident", 2, gbam, gfa, 4,
+                                 "--no-stream")
+    _must_equal("pod, resident, vs a single process", _payloads(prefix), want)
+    partial = {}
+    for flags in (["--coordinator", "localhost:1"], ["--num-processes", "2"],
+                  ["--process-id", "0", "--num-processes", "2"]):
+        rc = cli.main(["-b", gbam, "-f", gfa, "-o", prefix + "_partial",
+                       "-p", "hifi-masseq", "--platform", "cuda", *flags])
+        if rc != 2:
+            raise AssertionError(f"pod flags {flags} in part: rc {rc}")
+        partial[" ".join(flags)] = rc
+    _emit("pod_resident", card, reads=params["n_reads"], processes=2,
+          wall_seconds=wall, equal_to_single=True,
+          workers=[{k: r[k] for k in ("worker", "caller_wall_seconds",
+                                      "launches", "summary")}
+                   for r in reports],
+          partial_flags_rc=partial)
+
+
+def _stream_region(bam: str, fa: str, dev, contig: str = "chr1"):
+    """The first region of one contig of the stream input, prepared on
+    ``dev``: (cfg, region, cands, frags, apply_ds)."""
+    from longcallr_tpu_torch.config import preset
+    from longcallr_tpu_torch.io.bam import BamFile
+    from longcallr_tpu_torch.io.fasta import FastaFile
+    from longcallr_tpu_torch.pipeline.caller import build_regions
+    from longcallr_tpu_torch.pipeline.engine import prepare_region
+
+    cfg = preset("hifi-masseq")
+    fasta = FastaFile(fa)
+    clen = dict(fasta.contig_lengths)[contig]
+    win = BamFile(bam, threads=4, region=(contig, 0, clen))
+    reg = build_regions(win, fasta, cfg, contigs=[contig])[0][0]
+    cands, frags, apply_ds = prepare_region(win, reg, fasta.fetch(contig),
+                                            cfg, dev)
+    return cfg, reg, cands, frags, apply_ds
+
+
+def phase_giant(card: str, dev, stream_input) -> None:
+    """The reads-sharded ascent of giant regions, driven directly (one card
+    gives reads_devices no second device): one region of the stream input
+    through phase_region_sharded with [card] x 2 and x 4 as the "reads"
+    axis and with 2 CPU shards: the same states. One ascent of it through
+    sharded_cross_optimize on those meshes: the same decisions, prob within
+    1e-9 relative; read_sharded_snp_sums on the card against its CPU run at
+    1e-12 relative. The sharded path launches no hand kernel (f64 matmul,
+    as in the JAX package). Its wall stands beside phase_region's for the
+    region on the card (recorded, not judged)."""
+    from longcallr_tpu_torch.parallel import giant, mesh as M
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import optimize as O
+    from longcallr_tpu_torch.phasing.kernels import make_cell_tables_np
+
+    bam, fa = stream_input[:2]
+    cfg, reg, cands, frags, apply_ds = _stream_region(bam, fa, dev)
+    K0, I0 = frags.p.shape
+    K, I_pad = O._bucket(K0), O._bucket(I0)
+    cpu = torch.device("cpu")
+    meshes = {"card_x2": [dev] * 2, "card_x4": [dev] * 4, "cpu_x2": [cpu] * 2}
+    states, walls = {}, {}
+    CK.reset_launches()
+    for name, devs in meshes.items():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        states[name] = giant.phase_region_sharded(frags, cands, cfg,
+                                                  reg.start, apply_ds, devs)
+        torch.cuda.synchronize()
+        walls[name] = time.monotonic() - t0
+    if any(CK.LAUNCHES.values()):
+        raise AssertionError(f"the sharded ascent launched a hand kernel: "
+                             f"{CK.LAUNCHES}")
+    for name in ("card_x2", "card_x4"):
+        for a, b, f in zip(states[name], states["cpu_x2"], "sigma delta eta"
+                           .split()):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"giant {name}: {f} differs from the "
+                                     f"CPU shards")
+
+    # one ascent, with its objective, on each mesh
+    rng = np.random.default_rng(20261019)
+    p8 = np.zeros((K, I_pad), np.int8)
+    q8 = np.zeros((K, I_pad), np.uint8)
+    p8[:K0, :I0], q8[:K0, :I0] = frags.p, frags.baseq
+    rb = np.zeros(K, bool)
+    rb[:K0] = frags.for_phasing
+    sm = np.zeros(I_pad, bool)
+    sm[:I0] = cands.for_phasing
+    sigma0 = np.where(rb, rng.choice([-1.0, 1.0], K), 0.0)
+    delta0 = rng.choice([-1.0, 1.0], I_pad)
+    eta0 = np.zeros(I_pad)
+    cons = np.zeros(I_pad, bool)
+    asc = {}
+    for name, devs in meshes.items():
+        fn = M.sharded_cross_optimize(devs, with_genotype=False,
+                                      keep_conserved=True)
+        asc[name] = [t.cpu() for t in fn(p8, q8, sigma0, delta0, eta0, rb,
+                                         sm, cons)]
+    ref = asc["cpu_x2"]
+    worst_prob = 0.0
+    for name in ("card_x2", "card_x4"):
+        for a, b in zip(asc[name][:3], ref[:3]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sharded_cross_optimize {name}: "
+                                     f"decisions differ from the CPU shards")
+        rel = abs(float(asc[name][3]) - float(ref[3])) / abs(float(ref[3]))
+        worst_prob = max(worst_prob, rel)
+        if not rel <= 1e-9:
+            raise AssertionError(f"sharded_cross_optimize {name}: prob "
+                                 f"differs by {rel} relative")
+
+    # per-SNP sums with the reads on 4 card shards against 2 CPU shards
+    ct = make_cell_tables_np(p8, q8)
+    sums_args = (ct.p, ct.lerr, ct.l1m, sigma0, rb, sm, delta0)
+    on_card = M.read_sharded_snp_sums([dev] * 4)(*sums_args)
+    on_cpu = M.read_sharded_snp_sums([cpu] * 2)(*sums_args)
+    worst_sums = 0.0
+    for a, b in zip(on_card[:4], on_cpu[:4]):
+        a, b = a.cpu().double(), b.double()
+        rel = float(((a - b).abs() / b.abs().clamp(min=1e-300)).max())
+        worst_sums = max(worst_sums, rel)
+    if not worst_sums <= REL_TOL or not torch.equal(on_card[4].cpu(),
+                                                    on_cpu[4]):
+        raise AssertionError(f"read_sharded_snp_sums: card vs CPU "
+                             f"{worst_sums} relative")
+
+    # the same region on the normal path of a one-card run
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    O.phase_region(frags, cands, cfg, reg.start, apply_ds, device=dev)
+    torch.cuda.synchronize()
+    _emit("giant", card, region=str(reg), K=K, I=I_pad, reads=K0, snps=I0,
+          rounds=I0 // 4 + 1, reads_devices_here=giant.reads_devices(dev),
+          states_equal=True, sharded_wall_seconds=walls,
+          phase_region_wall_seconds=time.monotonic() - t0,
+          ascent_prob_max_rel_diff=worst_prob,
+          snp_sums_max_rel_diff=worst_sums, hand_kernel_launches=0)
+
+
+def phase_stats(card: str, dev, deep_input) -> dict:
+    """perturbation_phase_stats on one deep region on the card in split
+    mode: its state and prob equal perturbation_phase's on the same inputs,
+    it counts > 0 ascent trips, and it launches both kernels (at shapes
+    phase_kernels checked). Returns (launch counts, launch shapes)."""
+    from longcallr_tpu_torch.config import preset
+    from longcallr_tpu_torch.io.bam import BamFile
+    from longcallr_tpu_torch.io.fasta import FastaFile
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import optimize as O
+    from longcallr_tpu_torch.phasing import rng as R
+    from longcallr_tpu_torch.phasing.kernels import CompactCells
+    from longcallr_tpu_torch.pipeline.caller import build_regions
+    from longcallr_tpu_torch.pipeline.engine import prepare_region
+
+    bam_path, fa = deep_input
+    cfg = preset("hifi-masseq")
+    bam, fasta = BamFile(bam_path, threads=4), FastaFile(fa)
+    reg = build_regions(bam, fasta, cfg)[0][0]
+    cands, frags, _ = prepare_region(bam, reg, fasta.fetch(reg.chr), cfg, dev)
+    K0, I0 = frags.p.shape
+    K, I_pad = O._bucket(K0), O._bucket(I0)
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, reg.start]))
+    p8 = np.zeros((K, I_pad), np.int8)
+    q8 = np.zeros((K, I_pad), np.uint8)
+    p8[:K0, :I0], q8[:K0, :I0] = frags.p, frags.baseq
+    rb = np.zeros(K, bool)
+    rb[:K0] = frags.for_phasing
+    sm = np.zeros(I_pad, bool)
+    sm[:I0] = cands.for_phasing
+    ld = O.compute_ld_blocks(cands, frags)
+    d0, c0 = O.init_haplotypes_ld(cands, ld, rng)
+    delta0, cons = np.ones(I_pad), np.zeros(I_pad, bool)
+    delta0[:I0], cons[:I0] = d0, c0
+    eta0 = np.ones(I_pad)
+    eta0[:I0] = O.init_genotype(cands)
+    sigma0 = np.where(rb, np.where(rng.random(K) < 0.5, -1.0, 1.0), 0.0)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    ct = CompactCells.from_numpy(p8, q8, dev)
+    st1, prob1 = O.cross_optimize(ct, O.PhaseState.from_numpy(
+        sigma0, delta0, eta0, dev), on(rb), on(sm), on(cons), False, True,
+        split=True)
+    n_rounds = I0 // 4 + 1
+    key = R.prng_key(int(rng.integers(0, np.iinfo(np.int64).max,
+                                      dtype=np.int64)))
+    args = (ct, st1, st1, prob1, on(rb), on(sm), on(cons), n_rounds, key,
+            True)
+    res, walls = {}, {}
+    for name, fn in (("plain_schedule", O.perturbation_phase),
+                     ("stats", O.perturbation_phase_stats)):
+        CK.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res[name] = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = time.monotonic() - t0
+    launches = dict(CK.LAUNCHES)
+    shapes = _launched_shapes("stats, one deep region")
+    (b1, p1), (b2, p2, iters) = res["plain_schedule"], res["stats"]
+    if float(p1) != float(p2) or not all(torch.equal(a, b)
+                                         for a, b in zip(b1, b2)):
+        raise AssertionError("perturbation_phase_stats differs from "
+                             "perturbation_phase")
+    if iters <= 0 or not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"stats: {iters} trips, launches {launches}")
+    # each trip reads the split Dp (8 bytes a padded cell) twice: rows, cols
+    moved = 2 * iters * K * I_pad * 8
+    _emit("stats", card, region=str(reg), K=K, I=I_pad, rounds=n_rounds,
+          ascent_trips=iters, wall_seconds=walls, launches=launches,
+          launch_shapes=shapes, split_dp_bytes_moved=moved,
+          split_dp_bytes_per_second=moved / walls["stats"],
+          equal_to_perturbation_phase=True)
+    return launches, shapes
+
+
+def _trace_kernels(trace_dir: str) -> dict:
+    """Device kernels of the one torch.profiler trace in ``trace_dir``, by
+    the hand kernel they belong to: {"rows": n, "cols": n}."""
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"profile: expected one trace, found {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {"rows": sum("rows_" in n for n in names),
+            "cols": sum("cols_kernel" in n for n in names),
+            "kernels": len(names),
+            "trace_bytes": os.path.getsize(os.path.join(trace_dir, files[0]))}
+
+
+def phase_profile(card: str, tmp: str) -> None:
+    """--profile-dir on the genome workload: a torch.profiler trace is
+    written, it holds the device kernels of both hand kernels (split_*
+    wrappers: rows_*_kernel and cols_kernel), and the outputs are those of
+    a run without the flag. A session whose trace holds no kernel is tried
+    again, at most three times in all (torch.profiler has traced no kernel
+    in some sessions on this machine)."""
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+
+    gbam, gfa = os.path.join(tmp, "genome.bam"), os.path.join(tmp, "genome.fa")
+    make_genome_workload(gbam, gfa)
+    want = _payloads(_cli_run(tmp, "profile_off", gbam, gfa)[0])
+    tries = []
+    for attempt in range(3):
+        trace_dir = os.path.join(tmp, f"profile_trace_{attempt}")
+        prefix, out, launches, wall = _cli_run(
+            tmp, f"profile_on_{attempt}", gbam, gfa,
+            extra=["--profile-dir", trace_dir])
+        _must_equal("--profile-dir vs no profile", _payloads(prefix), want)
+        found = _trace_kernels(trace_dir)
+        tries.append({"wall_seconds": wall, "launches": launches, **found})
+        if found["rows"] and found["cols"]:
+            break
+    else:
+        raise AssertionError(f"profile: no trace named both kernels: {tries}")
+    _emit("profile", card, byte_equal=True, attempts=tries)
+
+
 def phase_imports(card: str) -> None:
     """The run imported neither jax nor any module of the JAX package."""
     bad = sorted(m for m in sys.modules
@@ -1446,10 +1885,16 @@ def main() -> int:
         runs = phase_batched(card, tmp, bam, fa, out, n_reads)
         phase_split_vs_f64(card, tmp, bam, fa,
                            out.vcf_path[:-len(".vcf")])
-        runs.update(phase_stream(card, tmp))
+        stream_runs, stream_input = phase_stream(card, tmp)
+        runs.update(stream_runs)
+        runs.update(phase_pod(card, tmp, stream_input))
         phase_resume(card, tmp)
         phase_placement(card, dev, tmp)
         phase_analysis(card, dev, tmp)
+        phase_pod_resident(card, tmp)
+        phase_giant(card, dev, stream_input)
+        runs["stats"] = phase_stats(card, dev, (bam, fa))
+        phase_profile(card, tmp)
     phase_imports(card)
     runs["per_region"] = per_region
     replaces = {

@@ -4,7 +4,8 @@ resident (batched for more than one region unless ``--no-batched``, per
 region otherwise) or, with ``--stream``, one contig at a time.
 ``build_parser`` and ``config_from_args`` are copied
 from ``longcallr_tpu/cli.py`` (only the program name differs), so both
-packages parse one command line alike.
+packages parse one command line alike; the help of ``--profile-dir``,
+``--coordinator`` and ``--platform`` therefore keeps the JAX wording.
 
     python -m longcallr_tpu_torch.cli -b in.bam -f ref.fa -o out -p hifi-masseq
         [--platform cuda|cpu] [--stream|--no-stream] [--resume]
@@ -14,13 +15,23 @@ available. ``--get-blocks`` lists the regions and exits (host only).
 ``--stream`` needs a ``.bai`` beside the BAM and takes no ``-r``; with
 neither ``--stream`` nor ``--no-stream`` nor ``-r``, an indexed BAM larger
 than LONGCALLR_STREAM_AUTO_MB (1024) is streamed. ``--resume`` keeps a
-region checkpoint on either path. The pod flags and ``--profile-dir`` are
-not ported yet and raise ``NotImplementedError`` naming their ROADMAP item.
+region checkpoint on either path.
+
+Pod mode: ``--coordinator HOST:PORT --num-processes N --process-id P``
+(all three or none; in part the CLI returns 2) runs this process as one of
+N joined by ``torch.distributed`` (gloo), each phasing its shard of the
+regions on its own device (``parallel/multihost.py``); process 0 writes
+the outputs and every process prints a JSON summary line. Several processes
+may share one card. ``--profile-dir DIR`` writes a ``torch.profiler``
+trace of the run (CPU, and the card where the run's device is CUDA) to DIR;
+the outputs are those of a run without it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import logging
 import os
 import sys
@@ -30,10 +41,9 @@ from .config import PRESET_NAMES, CallerConfig, preset
 
 log = logging.getLogger(__name__)
 
-# CallerOutputs of the last run through main() (read by chip_smoke.py)
+# CallerOutputs of the last run through main(), or a pod process's summary
+# dict (read by chip_smoke.py)
 LAST_RUN = None
-
-_PORT_ITEM = "ROADMAP.md torch port queue"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -159,22 +169,60 @@ def config_from_args(args) -> CallerConfig:
     return cfg
 
 
-def _unported(args) -> Optional[str]:
-    if any(f is not None for f in (args.coordinator, args.num_processes,
-                                   args.process_id)):
-        return f"pod mode ({_PORT_ITEM}: giant regions and multihost)"
-    if args.profile_dir:
-        return f"--profile-dir ({_PORT_ITEM}: bench and PERF.md metrics)"
-    return None
+@contextlib.contextmanager
+def _profiled(profile_dir: Optional[str], device):
+    """A torch.profiler trace of the block written to ``profile_dir`` (the
+    host, and the card when ``device`` is CUDA); nothing without a dir."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)):
+        yield
+
+
+def _report(out, device, index_output: bool) -> None:
+    print(f"wrote {out.n_records} records to {out.vcf_path} "
+          f"({out.n_phased_sites} phased sites, {out.n_candidates} candidates, "
+          f"{out.n_assigned_reads}/{out.n_fragments} reads haplotagged) "
+          f"on {device}")
+    if out.phased_bam_path:
+        print(f"wrote phased BAM to {out.phased_bam_path}")
+        if index_output:
+            from .io.bai import build_bai
+            print(f"wrote index to {build_bai(out.phased_bam_path)}")
+    print(f"split-mode regions kept: {out.n_split_kept}, "
+          f"recomputed in f64: {out.n_f64_reruns}")
+    if out.n_degraded_placements:
+        print(f"phase problems of card size run on the host: "
+              f"{out.n_degraded_placements}")
+    from .pipeline.engine import STAGE_COUNTS
+    for k, v in out.stage_seconds.items():
+        print(f"  count {k}: {int(v)}" if k in STAGE_COUNTS
+              else f"  stage {k}: {v:.2f}s")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=args.log_level,
                         format="%(asctime)s %(levelname)s %(message)s")
-    missing = _unported(args)
-    if missing:
-        raise NotImplementedError(f"not ported to the torch package: {missing}")
+    pod_flags = (args.coordinator, args.num_processes, args.process_id)
+    pod = any(f is not None for f in pod_flags)
+    if pod and any(f is None for f in pod_flags):
+        print("error: --coordinator, --num-processes and --process-id must "
+              "be given together", file=sys.stderr)
+        return 2
+    if pod:
+        # before any work: every process of the pod must join
+        from .parallel.multihost import initialize_distributed
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id)
     from .utils import malloc_tune
     malloc_tune.tune()
     cfg = config_from_args(args)
@@ -204,6 +252,37 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .utils.device import resolve_device
     global LAST_RUN
+    device = resolve_device(args.platform)
+
+    if pod:
+        # multi-process pod: shard regions across processes, gather, and
+        # let process 0 serialise (parallel/multihost.py). Has its own
+        # --stream AUTO (per-contig BAI-windowed shard processing).
+        from .parallel.multihost import (gather_degraded, run_multihost,
+                                         shutdown_distributed)
+        with _profiled(args.profile_dir, device):
+            res = run_multihost(args.bam_path, args.ref_path, args.output,
+                                cfg, stream=args.stream, device=device,
+                                input_vcf=args.input_vcf,
+                                input_region=args.region,
+                                contigs=args.contigs,
+                                anno_path=args.annotation,
+                                resume=args.resume)
+        LAST_RUN = res
+        if isinstance(res, dict):   # pod summary (process 0 or shard)
+            print(json.dumps(res))
+            if gather_degraded():
+                # degraded survivor (a peer died or hung in the gather): the
+                # process group's teardown could block on the dead peer;
+                # outputs are written — leave immediately
+                sys.stdout.flush()
+                sys.stderr.flush()
+                os._exit(0)
+        else:
+            _report(res, device, args.index_output)   # 1-process pod
+        shutdown_distributed()
+        return 0
+
     if args.stream is None and not args.region:
         # AUTO: a big indexed BAM should not be whole-resident by default;
         # stream == resident outputs are byte-identical
@@ -217,36 +296,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("error: --stream does not take -r (use the default "
               "pipeline for single-region runs)", file=sys.stderr)
         return 2
-    device = resolve_device(args.platform)
-    if args.stream:
-        out = run_streaming(args.bam_path, args.ref_path, args.output, cfg,
-                            contigs=args.contigs, input_vcf=args.input_vcf,
-                            anno_path=args.annotation, resume=args.resume,
-                            batched=args.batched, device=device)
-    else:
-        out = run(args.bam_path, args.ref_path, args.output, cfg,
-                  input_vcf=args.input_vcf, input_region=args.region,
-                  contigs=args.contigs, anno_path=args.annotation,
-                  resume=args.resume, batched=args.batched, device=device)
+    with _profiled(args.profile_dir, device):
+        if args.stream:
+            out = run_streaming(args.bam_path, args.ref_path, args.output,
+                                cfg, contigs=args.contigs,
+                                input_vcf=args.input_vcf,
+                                anno_path=args.annotation, resume=args.resume,
+                                batched=args.batched, device=device)
+        else:
+            out = run(args.bam_path, args.ref_path, args.output, cfg,
+                      input_vcf=args.input_vcf, input_region=args.region,
+                      contigs=args.contigs, anno_path=args.annotation,
+                      resume=args.resume, batched=args.batched, device=device)
     LAST_RUN = out
-    print(f"wrote {out.n_records} records to {out.vcf_path} "
-          f"({out.n_phased_sites} phased sites, {out.n_candidates} candidates, "
-          f"{out.n_assigned_reads}/{out.n_fragments} reads haplotagged) "
-          f"on {device}")
-    if out.phased_bam_path:
-        print(f"wrote phased BAM to {out.phased_bam_path}")
-        if args.index_output:
-            from .io.bai import build_bai
-            print(f"wrote index to {build_bai(out.phased_bam_path)}")
-    print(f"split-mode regions kept: {out.n_split_kept}, "
-          f"recomputed in f64: {out.n_f64_reruns}")
-    if out.n_degraded_placements:
-        print(f"phase problems of card size run on the host: "
-              f"{out.n_degraded_placements}")
-    from .pipeline.engine import STAGE_COUNTS
-    for k, v in out.stage_seconds.items():
-        print(f"  count {k}: {int(v)}" if k in STAGE_COUNTS
-              else f"  stage {k}: {v:.2f}s")
+    _report(out, device, args.index_output)
     return 0
 
 

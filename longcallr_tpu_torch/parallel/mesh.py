@@ -1,7 +1,8 @@
 """Bucket programs of the phasing engine: a batch of same-shape regions
-through the same launches (torch, one device).
+through the same launches (torch), and the programs that spread work over
+several devices.
 
-Port of the ``batched_*`` programs of ``longcallr_tpu/parallel/mesh.py``.
+Port of ``longcallr_tpu/parallel/mesh.py``.
 There a program is a jitted ``vmap`` over the regions of a bucket, sharded
 over a device mesh; here it is a plain function whose tensors carry the
 region axis first and run on the device they lie on: every elementwise
@@ -17,14 +18,20 @@ its round count are its own.
 through the hand kernels (on for CUDA tensors) or f64 (on the CPU);
 ``None`` resolves it from the bucket's device (``optimize.split_mode``).
 
-The mesh-sharded forms (``batched_phase_step``, ``read_sharded_snp_sums``,
-``sharded_cross_optimize``, ``make_mesh``) belong to the multi-device
-slice and are not ported here.
+A mesh here is an explicit grid of ``torch.device``s (``make_mesh``), not a
+``jax.sharding.Mesh``; a plain list of devices serves as the "reads" axis.
+Along "regions" (``batched_phase_step``) a bucket is cut into one chunk per
+row of the grid and each chunk runs on its device. Along "reads"
+(``read_sharded_snp_sums``, ``sharded_cross_optimize``: one giant region)
+the rows of ``[K,I]`` are cut into one contiguous shard per device; the
+per-read half-step stays on its shard and the per-SNP partial sums are
+added in shard order in f64 on the first device, where the JAX package
+reduces with ``psum``: the result does not depend on timing.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +40,8 @@ from ..phasing import kernels_fast as KF
 from ..phasing import optimize as O
 from ..phasing import rng as R
 from ..phasing.kernels import (TIE_TOL, CellTables, CompactCells, expand_cells,
-                               f64, overall_probability)
+                               f64, overall_probability, read_logliks, sigma_q,
+                               snp_qs, snp_sums)
 from ..phasing.optimize import PhaseState
 
 
@@ -60,6 +68,40 @@ class BatchedRegions(NamedTuple):
         return CompactCells(self.p, self.q)
 
 
+class Mesh(NamedTuple):
+    """A 2-D grid of devices: ``devices[r][c]`` is the device of row r of
+    the "regions" axis and column c of the "reads" axis."""
+
+    devices: Tuple[Tuple[torch.device, ...], ...]
+    axis_names: Tuple[str, str] = ("regions", "reads")
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return len(self.devices), len(self.devices[0])
+
+
+def make_mesh(n_regions_axis: Optional[int] = None,
+              n_reads_axis: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """The devices (default: every CUDA device of this process) as a
+    (regions, reads) grid; a missing axis size takes what is left."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    if n_regions_axis is None:
+        n_reads_axis = n_reads_axis or 1
+        n_regions_axis = n // n_reads_axis
+    if n_reads_axis is None:
+        n_reads_axis = n // n_regions_axis
+    if n_regions_axis * n_reads_axis != n or n == 0:
+        raise ValueError(f"a ({n_regions_axis}, {n_reads_axis}) mesh needs "
+                         f"{n_regions_axis * n_reads_axis} devices, got {n}")
+    return Mesh(tuple(tuple(devices[r * n_reads_axis:(r + 1) * n_reads_axis])
+                      for r in range(n_regions_axis)))
+
+
 def _split(batch: BatchedRegions, split: Optional[bool]) -> bool:
     return O.split_mode(batch.p.device) if split is None else bool(split)
 
@@ -80,6 +122,237 @@ def batched_cross_optimize(batch: BatchedRegions, sigma, delta, eta,
         batch.site_mask, batch.conserved, with_genotype, keep_conserved,
         _split(batch, split))
     return st.sigma, st.delta, st.eta, prob
+
+
+def _one_sweep(batch: BatchedRegions, sigma, delta, eta, with_genotype: bool,
+               keep_conserved: bool):
+    """One σ half-step then one (δ, η) half-step of the reference form on
+    every region of ``batch`` (phase.rs:823-965)."""
+    ct = expand_cells(batch.cells)
+    lp, lm, ncell = read_logliks(ct, delta, eta, batch.site_mask)
+    upd = batch.read_base & (sigma != 0) & (ncell > 0)
+    q, qn = sigma_q(lp, lm, sigma)
+    flip = upd & (qn > q + TIE_TOL)
+    new_sigma = torch.where(flip, -sigma, sigma)
+    st = PhaseState(new_sigma, delta, eta)
+    sums = snp_sums(ct, new_sigma, delta, batch.read_base & (new_sigma != 0),
+                    batch.site_mask)
+    new_delta, new_eta, changed = O._snp_decision(
+        *snp_qs(*sums), sums[4], st, batch.site_mask, batch.conserved,
+        with_genotype, keep_conserved)
+    return new_sigma, new_delta, new_eta, flip.any(dim=-1) | changed
+
+
+def batched_phase_step(batch: BatchedRegions, sigma, delta, eta,
+                       with_genotype: bool = False,
+                       keep_conserved: bool = False,
+                       mesh: Optional[Mesh] = None):
+    """One full coordinate-ascent sweep over a bucket of regions. Returns
+    (sigma, delta, eta, improved[B]).
+
+    With a mesh, the bucket is cut along "regions" into one contiguous chunk
+    per row of the grid; each chunk runs on the first device of its row
+    (pure data parallelism, nothing is exchanged) and the results come back
+    in order to the bucket's device."""
+    if mesh is None:
+        return _one_sweep(batch, sigma, delta, eta, with_genotype,
+                          keep_conserved)
+    home = batch.p.device
+    bounds = np.linspace(0, batch.p.shape[0], mesh.shape[0] + 1).astype(int)
+    parts = []
+    for r, (b0, b1) in enumerate(zip(bounds[:-1], bounds[1:])):
+        if b1 == b0:
+            continue
+        dev = mesh.devices[r][0]
+        on = lambda a: a[b0:b1].to(dev)
+        chunk = BatchedRegions(*(on(a) for a in batch))
+        parts.append(_one_sweep(chunk, on(sigma), on(delta), on(eta),
+                                with_genotype, keep_conserved))
+    return tuple(torch.cat([p[k].to(home) for p in parts]) for k in range(4))
+
+
+def _devices(mesh) -> List[torch.device]:
+    """The devices of the "reads" axis: a plain list, or the first row of a
+    Mesh."""
+    if isinstance(mesh, Mesh):
+        return list(mesh.devices[0])
+    return [torch.device(d) for d in mesh]
+
+
+def _row_bounds(K: int, n: int) -> np.ndarray:
+    """Row offsets of ``n`` contiguous shards of ``K`` rows."""
+    if K < n:
+        raise ValueError(f"{K} rows cannot fill {n} shards")
+    return np.linspace(0, K, n + 1).astype(int)
+
+
+def _sum_in_order(parts, home: torch.device):
+    """Σ of per-shard partials in shard order on ``home``: the reduction
+    that stands for the JAX package's psum, the same for every run."""
+    total = parts[0].to(home)
+    for p in parts[1:]:
+        total = total + p.to(home)
+    return total
+
+
+def read_sharded_snp_sums(mesh):
+    """Per-SNP masked sums for ONE giant region with its reads cut into one
+    contiguous shard per device of ``mesh`` (a list of devices, or a Mesh's
+    "reads" axis). Returns fn(p, lerr, l1m, sigma, read_mask, site_mask,
+    delta) → (s_match, s_flip, s_refe, s_alte, cov), each [I] on the first
+    device, the partial sums added in shard order (f64; cov int64)."""
+    devs = _devices(mesh)
+
+    def fn(p, lerr, l1m, sigma, read_mask, site_mask, delta):
+        t = lambda a: torch.as_tensor(a)
+        p, lerr, l1m, sigma, read_mask = map(t, (p, lerr, l1m, sigma,
+                                                 read_mask))
+        bounds = _row_bounds(p.shape[0], len(devs))
+        parts = []
+        for d, r0, r1 in zip(devs, bounds[:-1], bounds[1:]):
+            sm, dl = t(site_mask).to(d), t(delta).to(d, f64)
+            pp = p[r0:r1].to(d, f64)
+            m = sm[None, :] & (pp != 0) & read_mask[r0:r1].to(d)[:, None]
+            x = sigma[r0:r1].to(d, f64)[:, None] * dl[None, :]
+            le, l1 = lerr[r0:r1].to(d, f64), l1m[r0:r1].to(d, f64)
+            term = lambda xv: torch.where(pp == xv, l1, le)
+            zero = torch.zeros((), dtype=f64, device=d)
+            parts.append((torch.where(m, term(x), zero).sum(0),
+                          torch.where(m, term(-x), zero).sum(0),
+                          torch.where(m, term(1.0), zero).sum(0),
+                          torch.where(m, term(-1.0), zero).sum(0),
+                          m.sum(0, dtype=torch.int64)))
+        return tuple(_sum_in_order([pt[k] for pt in parts], devs[0])
+                     for k in range(5))
+
+    return fn
+
+
+class ReadShards(NamedTuple):
+    """One region's σ-independent tables, cut into contiguous row shards,
+    each on its device (built once per region, ``shard_cells``)."""
+
+    devices: List[torch.device]
+    bounds: np.ndarray          # row offsets of the shards, [n + 1]
+    lerr: List[torch.Tensor]    # [K_s,I] f64 log10(err), 0 where no cell
+    diff: List[torch.Tensor]    # [K_s,I] f64 l1m - lerr on phase-site cells
+    dp: List[torch.Tensor]      # [K_s,I] f64 diff * p
+    m: List[torch.Tensor]       # [K_s,I] bool phase-site cells
+    row_b: List[torch.Tensor]   # [K_s] Σ lerr over phase-site cells
+    row_dif: List[torch.Tensor]  # [K_s] Σ diff
+    row_cells: List[torch.Tensor]  # [K_s] phase-site cells of the read
+    read_base: List[torch.Tensor]  # [K_s] bool
+
+
+def shard_cells(devices, p8, q8, read_base, site_mask) -> ReadShards:
+    """Cut a region's compact cells (int8 allele, uint8 baseq: 2 bytes a
+    cell travel) into one row shard per device and expand each shard's rows
+    on its own device (kernels.expand_cells)."""
+    devs = _devices(devices)
+    t = lambda a: torch.as_tensor(a)
+    p8, q8, read_base, site_mask = map(t, (p8, q8, read_base, site_mask))
+    bounds = _row_bounds(p8.shape[0], len(devs))
+    cols = {k: [] for k in ReadShards._fields[2:]}
+    for d, r0, r1 in zip(devs, bounds[:-1], bounds[1:]):
+        ct = expand_cells(CompactCells(p8[r0:r1].to(d), q8[r0:r1].to(d)))
+        zero = torch.zeros((), dtype=f64, device=d)
+        m = site_mask.to(d)[None, :] & ct.exists
+        diff = torch.where(m, ct.l1m - ct.lerr, zero)
+        lerr_m = torch.where(m, ct.lerr, zero)
+        for k, v in (("lerr", ct.lerr), ("diff", diff), ("dp", diff * ct.p),
+                     ("m", m), ("row_b", lerr_m.sum(1)),
+                     ("row_dif", diff.sum(1)), ("row_cells", m.sum(1)),
+                     ("read_base", read_base[r0:r1].to(d))):
+            cols[k].append(v)
+    return ReadShards(devs, bounds, **cols)
+
+
+def sharded_ascent(sh: ReadShards, sigma0, delta0, eta0, site_mask,
+                   conserved, with_genotype: bool, keep_conserved: bool):
+    """Full ≤21-trip coordinate ascent of one region over its row shards.
+    The σ half-step stays on each shard (``dp @ u``, ``dp @ v``, the
+    ``sigma_q`` flip under TIE_TOL); the flip count, the column sums and
+    ``dpᵀσ`` are added in shard order on the first device, where the (δ, η)
+    half-step runs once. Returns (sigma [K], delta, eta, prob) on the first
+    device."""
+    home = sh.devices[0]
+    on = lambda a, d: torch.as_tensor(a).to(d)
+    site_mask = on(site_mask, home)
+    conserved = on(conserved, home)
+    sigma0 = on(sigma0, home).to(f64)
+    sigs = [sigma0[r0:r1].to(d) for d, r0, r1 in
+            zip(sh.devices, sh.bounds[:-1], sh.bounds[1:])]
+    n = len(sh.devices)
+    rm0 = [sh.read_base[s] & (sigs[s] != 0) for s in range(n)]
+    ms = [sh.m[s] & rm0[s][:, None] for s in range(n)]
+    zero = lambda s: torch.zeros((), dtype=f64, device=sh.devices[s])
+    col = lambda v: _sum_in_order(
+        [torch.where(ms[s], v[s], zero(s)).sum(0) for s in range(n)], home)
+    col_b, col_dif, col_dp = col(sh.lerr), col(sh.diff), col(sh.dp)
+    cov = _sum_in_order([ms[s].sum(0) for s in range(n)], home)
+    upd_rows = [rm0[s] & (sh.row_cells[s] > 0) for s in range(n)]
+
+    def uv(delta, eta):
+        u = torch.where(eta == 0, delta, 0.0)
+        v = torch.where(eta == 0, 0.0, eta)
+        return ([u.to(d) for d in sh.devices], [v.to(d) for d in sh.devices])
+
+    st = PhaseState(sigma0, on(delta0, home).to(f64), on(eta0, home).to(f64))
+    for _ in range(21):
+        us, vs = uv(st.delta, st.eta)
+        flips = []
+        for s in range(n):
+            du = sh.dp[s] @ us[s]
+            dv = sh.dp[s] @ vs[s]
+            base = sh.row_b[s] + 0.5 * sh.row_dif[s] + 0.5 * dv
+            q, qn = sigma_q(base + 0.5 * du, base - 0.5 * du, sigs[s])
+            flip = upd_rows[s] & (qn > q + TIE_TOL)
+            sigs[s] = torch.where(flip, -sigs[s], sigs[s])
+            flips.append(flip.sum())
+        s_inc = _sum_in_order(flips, home) > 0
+        dts = _sum_in_order(
+            [sh.dp[s].T @ torch.where(rm0[s], sigs[s], 0.0)
+             for s in range(n)], home)
+        base = col_b + 0.5 * col_dif
+        half = 0.5 * st.delta * dts
+        sums = (base + half, base - half, base + 0.5 * col_dp,
+                base - 0.5 * col_dp, cov)
+        new_delta, new_eta, d_inc = O._snp_decision(
+            *snp_qs(*sums), cov, st, site_mask, conserved, with_genotype,
+            keep_conserved)
+        st = PhaseState(st.sigma, new_delta, new_eta)
+        if not bool(s_inc | d_inc):
+            break
+    # objective (matvec form), per-shard partials added in shard order
+    us, vs = uv(st.delta, st.eta)
+    per = [torch.where(rm0[s], sh.row_b[s] + 0.5 * sh.row_dif[s]
+                       + 0.5 * (sigs[s] * (sh.dp[s] @ us[s])
+                                + sh.dp[s] @ vs[s]), 0.0).sum()
+           for s in range(n)]
+    prob = _sum_in_order(per, home)
+    sigma = torch.cat([sg.to(home) for sg in sigs])
+    return sigma, st.delta, st.eta, prob
+
+
+def sharded_cross_optimize(mesh, with_genotype: bool = False,
+                           keep_conserved: bool = False):
+    """Full coordinate ascent for ONE giant region with its reads sharded
+    over the devices of ``mesh`` (a list of devices, or a Mesh's "reads"
+    axis): the sequence-parallel analog of the JAX package's shard_map
+    program (see ``sharded_ascent``).
+
+    Returns fn(p8, q8, sigma0, delta0, eta0, read_base, site_mask,
+    conserved) → (sigma, delta, eta, prob) on the first device. Cell data
+    arrives in compact form (int8 allele + uint8 baseq); each shard expands
+    only its own rows."""
+    devs = _devices(mesh)
+
+    def fn(p8, q8, sigma0, delta0, eta0, read_base, site_mask, conserved):
+        sh = shard_cells(devs, p8, q8, read_base, site_mask)
+        return sharded_ascent(sh, sigma0, delta0, eta0, site_mask, conserved,
+                              with_genotype, keep_conserved)
+
+    return fn
 
 
 def _round_counts(n_rounds) -> np.ndarray:

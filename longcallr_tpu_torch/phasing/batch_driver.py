@@ -35,6 +35,7 @@ import torch
 
 from ..config import CallerConfig
 from ..ops.candidates import CandidateSet
+from ..parallel import giant
 from ..parallel import mesh as M
 from ..pipeline.engine import stage_add
 from ..utils.device import phase_problem_device, resolve_device
@@ -46,11 +47,6 @@ from .kernels import TIE_TOL, make_cell_tables_np
 from .optimize import (PhaseState, _bucket, block_flip_pass, compute_ld_blocks,
                        enumeration_order, init_genotype, init_haplotypes_ld,
                        phase_region)
-
-# a region of at least this many padded cells stays out of the padded
-# buckets (one such member would set the whole batch's footprint) and is
-# phased alone (the JAX package's knob and default)
-GIANT_CELLS = int(_os.environ.get("LONGCALLR_GIANT_CELLS", str(1 << 26)))
 
 # On the CPU the batch couples convergence: every trip of the masked ascent
 # touches all B members until the slowest has converged, so a large bucket
@@ -111,7 +107,10 @@ def phase_regions_batched(items: List[Tuple[FragmentMatrix, CandidateSet, int, b
             enum_buckets.setdefault((_bucket(K0), I0), []).append(
                 _Prepared(idx, frags, cands, seed, apply_ds))
             continue
-        if _bucket(K0) * _bucket(I0) >= GIANT_CELLS:
+        if _bucket(K0) * _bucket(I0) >= giant.GIANT_CELLS:
+            # a giant region stays out of the padded buckets (one such
+            # member would set the whole batch's footprint): phase_region
+            # routes it, to the reads-sharded ascent where there are cards
             stage_add("phase_single_regions", 1)
             out[idx] = phase_region(frags, cands, cfg, seed, apply_ds,
                                     device=device)

@@ -323,6 +323,45 @@ def _keep_best(b_st: PhaseState, b_p, st_new: PhaseState, p_new):
     return _select(better, st_new, b_st), torch.where(better, p_new, b_p)
 
 
+def _perturbation_impl(ct, st: PhaseState, best_st: PhaseState, best_prob,
+                       read_base, site_mask, conserved, n_rounds: int, key,
+                       split: bool, with_iters: bool):
+    """Shared body of perturbation_phase and its _stats variant."""
+    if with_iters and not USE_FAST_KERNELS:
+        raise RuntimeError("iteration accounting needs the fast-kernel ascent")
+    K = st.sigma.shape[0]
+    I = st.delta.shape[0]
+    dev = st.sigma.device
+    if USE_FAST_KERNELS:
+        ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
+        ascend = lambda st0: _cross_optimize_fast_loop_it(
+            None, st0, read_base, site_mask, conserved, False, False, split,
+            ft=ft)
+    else:
+        ct = as_tables(ct)
+        ascend = lambda st0: _cross_optimize_loop(
+            ct, st0, read_base, site_mask, conserved, False, False) + (0,)
+    rg_np, fl_np = R.predraw_rounds(key, K, I)
+    rg_all = torch.as_tensor(rg_np, device=dev)
+    fl_all = torch.as_tensor(fl_np, device=dev)
+    b_st = best_st
+    b_p = torch.as_tensor(best_prob, dtype=f64, device=dev)
+    iters = 0
+    for t in range(int(n_rounds)):
+        lowv = 1.0 if t % 2 == 1 else -1.0
+        rg = rg_all[t]
+        delta = torch.where(rg < 0.1, lowv,
+                            torch.where(rg >= 0.9, -lowv, b_st.delta))
+        st1, prob1, it1 = ascend(b_st._replace(delta=delta))
+        b_st, b_p = _keep_best(b_st, b_p, st1, prob1)
+        fl = (fl_all[t] < 0.1) & read_base & (b_st.sigma != 0)
+        sigma = torch.where(fl, -b_st.sigma, b_st.sigma)
+        st2, prob2, it2 = ascend(b_st._replace(sigma=sigma))
+        b_st, b_p = _keep_best(b_st, b_p, st2, prob2)
+        iters += it1 + it2
+    return (b_st, b_p, iters) if with_iters else (b_st, b_p)
+
+
 def perturbation_phase(ct, st: PhaseState, best_st: PhaseState, best_prob,
                        read_base, site_mask, conserved, n_rounds: int, key,
                        split: bool = False) -> Tuple[PhaseState, torch.Tensor]:
@@ -330,35 +369,22 @@ def perturbation_phase(ct, st: PhaseState, best_st: PhaseState, best_prob,
     of {10% SNP resets → ascent → keep-best → 10% read flips → ascent →
     keep-best}. ``key`` is a threefry key (rng.prng_key); the round
     randoms are drawn at the padded sizes, as in the JAX package."""
-    K = st.sigma.shape[0]
-    I = st.delta.shape[0]
-    dev = st.sigma.device
-    if USE_FAST_KERNELS:
-        ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
-        ascend = lambda st0: _cross_optimize_fast_loop(
-            None, st0, read_base, site_mask, conserved, False, False, split,
-            ft=ft)
-    else:
-        ct = as_tables(ct)
-        ascend = lambda st0: _cross_optimize_loop(
-            ct, st0, read_base, site_mask, conserved, False, False)
-    rg_np, fl_np = R.predraw_rounds(key, K, I)
-    rg_all = torch.as_tensor(rg_np, device=dev)
-    fl_all = torch.as_tensor(fl_np, device=dev)
-    b_st = best_st
-    b_p = torch.as_tensor(best_prob, dtype=f64, device=dev)
-    for t in range(int(n_rounds)):
-        lowv = 1.0 if t % 2 == 1 else -1.0
-        rg = rg_all[t]
-        delta = torch.where(rg < 0.1, lowv,
-                            torch.where(rg >= 0.9, -lowv, b_st.delta))
-        st1, prob1 = ascend(b_st._replace(delta=delta))
-        b_st, b_p = _keep_best(b_st, b_p, st1, prob1)
-        fl = (fl_all[t] < 0.1) & read_base & (b_st.sigma != 0)
-        sigma = torch.where(fl, -b_st.sigma, b_st.sigma)
-        st2, prob2 = ascend(b_st._replace(sigma=sigma))
-        b_st, b_p = _keep_best(b_st, b_p, st2, prob2)
-    return b_st, b_p
+    return _perturbation_impl(ct, st, best_st, best_prob, read_base,
+                              site_mask, conserved, n_rounds, key, split,
+                              with_iters=False)
+
+
+def perturbation_phase_stats(ct, st: PhaseState, best_st: PhaseState,
+                             best_prob, read_base, site_mask, conserved,
+                             n_rounds: int, key, split: bool = False):
+    """perturbation_phase with ascent-trip accounting: returns (best state,
+    best prob, total ascent trips across all 2·n_rounds ascents). Each trip
+    is two passes over Dp (the rows and the cols matvec, kernels_fast.py;
+    in split mode the two hand kernels): the count turns a measured wall
+    time into bytes moved. Fast-kernel path only."""
+    return _perturbation_impl(ct, st, best_st, best_prob, read_base,
+                              site_mask, conserved, n_rounds, key, split,
+                              with_iters=True)
 
 
 def enumeration_order(n: int) -> np.ndarray:
@@ -613,13 +639,26 @@ def phase_region(frags: FragmentMatrix, cands: CandidateSet,
     ``device`` (``None``: the CUDA device, and it raises where there is
     none). A region of little work is placed on the host
     (utils/device.phase_problem_device; work = cells x rounds, the per-
-    config ascents playing the rounds' part on the enumeration path).
-    Returns the final state as host numpy, sliced back to true sizes."""
+    config ascents playing the rounds' part on the enumeration path); a
+    giant iterative region on a process with several cards goes to the
+    reads-sharded ascent first (parallel/giant.py). Returns the final state
+    as host numpy, sliced back to true sizes."""
     device = resolve_device() if device is None else torch.device(device)
     K0, I0 = frags.p.shape
     if I0 == 0:
         return PhaseState(np.zeros(K0), np.zeros(0), np.zeros(0))
     K, I_pad = _bucket(max(1, K0)), _bucket(max(1, I0))
+    if I0 > cfg.max_enum_snps:
+        # a giant iterative region goes to the reads-sharded ascent
+        # (parallel/giant.py) when this process has several cards — the
+        # reference serialises such loci on one rayon worker
+        from ..parallel import giant
+        if K * I_pad >= giant.GIANT_CELLS:
+            devices = giant.reads_devices(device)
+            if devices is not None:
+                st = giant.phase_region_sharded(frags, cands, cfg, seed,
+                                                apply_downsampling, devices)
+                return PhaseState(st.sigma[:K0], st.delta[:I0], st.eta[:I0])
     if I0 <= cfg.max_enum_snps:
         work = (1 << min(I0, 40)) * K * I_pad
     else:

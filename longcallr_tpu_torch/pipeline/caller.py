@@ -25,8 +25,8 @@ LONGCALLR_FINALIZE_MT_CELLS fans the finalize of large regions out over
 threads. LONGCALLR_STREAM_PREFETCH=0 runs the stream strictly one contig
 at a time.
 
-Not ported yet: the pod entry points (``cli.py`` raises
-``NotImplementedError`` naming their ROADMAP item).
+The pod entry points (N processes, each with a shard of the regions) are in
+``parallel/multihost.py``.
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ from longcallr_tpu.tiles.regions import Region as JaxRegion
 from longcallr_tpu_torch.config import preset
 from longcallr_tpu_torch.io.bam import BamFile
 from longcallr_tpu_torch.ops import candidates as TC
+from longcallr_tpu_torch.parallel import giant
 from longcallr_tpu_torch.parallel import mesh as TM
 from longcallr_tpu_torch.phasing import batch_driver as TBD
 from longcallr_tpu_torch.phasing import kernels_fast as TKF
@@ -647,7 +648,7 @@ def test_safety_net_recomputes_a_member_in_f64(tmp_path, monkeypatch):
 def test_giant_regions_leave_the_buckets(tmp_path, monkeypatch):
     cfg, titems = _items(tmp_path, "torch")
     want = TBD.phase_regions_batched(titems, cfg, device=CPU)
-    monkeypatch.setattr(TBD, "GIANT_CELLS", 1)
+    monkeypatch.setattr(giant, "GIANT_CELLS", 1)
     before = _census()
     got = TBD.phase_regions_batched(titems, cfg, device=CPU)
     census = _delta(before)

@@ -5,8 +5,9 @@ The first test runs in a subprocess whose import machinery refuses both
 names. Every module of ``longcallr_tpu_torch`` is imported there, then the
 CLI calls a small simulated BAM on the CPU, lists its regions
 (``--get-blocks``), calls it again with ``--stream --resume`` (the same VCF
-bytes), and the ASE and ASJ tools write their tables from the streamed
-phased BAM, all to exit code 0.
+bytes), the ASE and ASJ tools write their tables from the streamed phased
+BAM, and a 1-process pod (``--coordinator``, torch.distributed) writes the
+same VCF bytes, all to exit code 0.
 """
 
 import os
@@ -45,6 +46,8 @@ names = [m.name for m in pkgutil.walk_packages(longcallr_tpu_torch.__path__,
                                                "longcallr_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"longcallr_tpu_torch.parallel.giant",
+        "longcallr_tpu_torch.parallel.multihost"} <= set(names)
 print("IMPORTED", len(names))
 
 import numpy as np
@@ -87,6 +90,18 @@ rc = asj.main(["-b", tmp + "/stream.phased.bam", "-a", tmp + "/g.gtf", "-f",
                tmp + "/in.fa", "-o", tmp + "/tab", "-m", "5"])
 assert rc == 0, rc
 print("ASE", open(tmp + "/tab.ase.tsv").read().count("\n"))
+# a 1-process pod through the CLI (torch.distributed, gloo)
+import socket
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+pbase = base[:4] + ["-o", tmp + "/pod"] + base[6:]
+rc = cli.main(pbase + ["--platform", "cpu", "--coordinator",
+                       f"localhost:{port}", "--num-processes", "1",
+                       "--process-id", "0"])
+assert rc == 0, rc
+assert open(tmp + "/pod.vcf", "rb").read() == resident
+print("POD", cli.LAST_RUN.n_records)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not bad, bad
 print("RAN", cli.LAST_RUN.n_records)
@@ -99,6 +114,7 @@ def test_port_runs_with_jax_and_the_jax_package_blocked(tmp_path):
                          timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "IMPORTED" in res.stdout and "RAN" in res.stdout
+    assert "POD" in res.stdout
     n_modules = len(list(pkgutil.walk_packages(
         longcallr_tpu_torch.__path__, "longcallr_tpu_torch.")))
     assert f"IMPORTED {n_modules}" in res.stdout and n_modules >= 39

@@ -121,21 +121,45 @@ def test_port_never_imports_jax(tmp_path):
     assert "NOJAX" in res.stdout
 
 
-_POD = ["--coordinator", "localhost:1", "--num-processes", "2",
+_POD = ["--coordinator", "localhost:{port}", "--num-processes", "1",
         "--process-id", "0"]
 
 
-@pytest.mark.parametrize("flag", [["--profile-dir", "prof"],
+@pytest.mark.parametrize("flag", [["--profile-dir", "{tmp}/prof"],
                                   _POD + ["--stream", "--resume"], _POD])
-def test_unported_flags_raise(flag):
-    """What is still to port raises naming its ROADMAP item: the pod flags
-    (with --stream and --resume too, which alone are ported) and
-    --profile-dir."""
-    from longcallr_tpu_torch import cli
+def test_unported_flags_raise(tmp_path, flag):
+    """The flags that once raised NotImplementedError now run on the CPU:
+    --profile-dir writes a torch.profiler trace, and a 1-process pod (the
+    pod flags, also with --stream --resume) writes the VCF bytes of a plain
+    run."""
+    import socket
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["-b", "x.bam", "-f", "x.fa", "-o", "x", "-p",
-                  "hifi-masseq", *flag])
+    from longcallr_tpu_torch import cli
+    from longcallr_tpu_torch.io.bai import build_bai
+
+    rng = np.random.default_rng(77)
+    ref = make_reference(rng, 9000)
+    truth = plant_snps(rng, ref, n_het=10, n_hom=1, min_gap=400)
+    bam = str(tmp_path / "f.bam")
+    simulate_bam(bam, rng, ref, truth, n_reads=60, read_len=2500,
+                 err_rate=0.01)
+    build_bai(bam)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    base = ["-b", bam, "-f", str(tmp_path / "f.fa"), "-p", "hifi-masseq",
+            "--platform", "cpu", "--min-read-length", "100"]
+    assert cli.main(base + ["-o", str(tmp_path / "plain")]) == 0
+    flag = [f.format(port=port, tmp=tmp_path) for f in flag]
+    assert cli.main(base + ["-o", str(tmp_path / "x"), *flag]) == 0
+    with open(tmp_path / "plain.vcf", "rb") as a, \
+            open(tmp_path / "x.vcf", "rb") as b:
+        assert a.read() == b.read()
+    if flag[0] == "--profile-dir":
+        assert any(f.endswith(".pt.trace.json")
+                   for f in os.listdir(tmp_path / "prof"))
+    else:
+        assert not torch.distributed.is_initialized()
 
 
 def test_resolve_device():
