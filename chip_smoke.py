@@ -127,13 +127,34 @@ package) and fails on the first check that does not hold:
  16. profile — the genome workload with --profile-dir: the torch.profiler
                trace holds both hand kernels' device kernels, and the bytes
                equal a run without the flag;
- 17. imports — neither jax nor any longcallr_tpu module was imported.
+ 17. imports — neither jax nor any longcallr_tpu module was imported;
+ 18. mesh    — (run right after phase 12) the regions axis of the mesh:
+               caller.run(batched=True, mesh=...) with the CLI's
+               configuration, the card repeated along "regions" (one card),
+               and once more over every card (make_mesh()) where there are
+               several: (a) the deep input at the default waves on a (2, 1)
+               mesh and as one wave of 4 on a (4, 1) mesh, byte-equal to
+               phase 6 (a) and (f); (b) the enumeration workload (i) on a
+               (4, 1) mesh, byte-equal to phase 6 (i), with enumeration
+               buckets on the mesh; (c) the first 2 of the stream input's 5
+               contigs resident with 8 threads on a (4, 1) mesh, byte-equal
+               to those contigs of phase 8's resident run; (d)
+               batched_perturbation_phase_stats on the deep bucket of four
+               (its first 25 rounds) with and without a (4, 1) mesh: states
+               and trips equal, probs within 1e-12 relative. A mesh that
+               repeats one card is slower than the bucket (PERF.md,
+               Findings): (c) and (d) are cut to stay in the script's time.
+               Every row launches both kernels (cuda_kernels.
+               LAUNCHES_BY_ROW), only at shapes phase 2 checked;
+               region_phase, phase_fused and walls are printed beside
+               phases 6 and 8.
 
 The goldens of phase 4 and the enumeration workloads of phase 6 run with
 the placement off (everything on the card, as before there was one): at its
 default their regions are of host size. Every other run has the default.
 
-Each phase prints one JSON line. Then the kernel summary line (``ms``,
+Each phase prints one JSON line (``script_seconds``: the script's time when
+the phase ended). Then the kernel summary line (``ms``,
 ``plain_ms`` and ``library_ms`` are device times per call with the tables
 warm in L2, at the shape the default batched run of the deep input
 launches: the bucket of two regions that a default wave makes; ``shapes``
@@ -145,7 +166,9 @@ deep run, ``launches_per_region`` the per-region one,
 ``launches_enum_deep_per_region`` the two of (i), ``launches_stream`` and
 ``launches_stream_resident`` the two legs of phase 8,
 ``launches_pod_2p_p0``, ``launches_pod_2p_p1`` and ``launches_pod_1p_p0``
-the workers of phase 12, ``launches_stats`` phase 15; each timed shape lists
+the workers of phase 12, ``launches_stats`` phase 15, ``launches_mesh``
+(a)'s run on the (2, 1) mesh and ``launches_mesh_*`` the other runs of
+phase 18 (``_cards``: over every card); each timed shape lists
 under ``launched_by`` the runs that launched the kernel there), the card's
 name and power limit (nvidia-smi), and last the result line.
 """
@@ -166,6 +189,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+START = time.monotonic()
 
 REL_TOL = 1e-12
 N_TIMED = 50
@@ -195,6 +219,11 @@ ENUM6_BUCKET = (4, 512, 8, False, 64)
 ENUM6_REGION = (64, 512, 8, True)
 ENUM10_BUCKET = (4, 512, 16, False, 512)
 ENUM10_REGION = (1024, 512, 16, True)
+# what a row of a regions mesh launches on (i)'s buckets cut into rows of
+# one region (phase mesh, one card), and of two (a mesh of two or three
+# cards): the 10-SNP chunk of 512 configs keeps the whole bucket's size
+ENUM10_MESH_ROW = (512, 512, 16, True)
+ENUM_MESH_PAIRS = [(2, 512, 8, False, 64), (2, 512, 16, False, 512)]
 # what the enumeration workload of phase_batched (g) launches: its bucket of
 # 12 regions x 16 configs, and one region's 16 configs on the per-region loop
 ENUM_RUN_BUCKET = (12, 64, 8, False, 16)
@@ -220,14 +249,16 @@ TIMED = {DEEP: "deep", DEEP_BUCKET: "deep_bucket", DEEP_WAVE: "deep_wave",
          STREAM_WAVE: "stream_wave", STREAM_TAIL: "stream_tail",
          ENUM6_BUCKET: "enum6_bucket", ENUM6_REGION: "enum6_region",
          ENUM10_BUCKET: "enum10_bucket", ENUM10_REGION: "enum10_region",
+         ENUM10_MESH_ROW: "enum10_mesh_row",
          ENUM_RUN_BUCKET: "enum_run_bucket",
          ENUM_RUN_REGION: "enum_run_region"}
 # every shape phase_kernels holds against the plain versions: the main-path
 # shapes first, then unaligned ones
 CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, STREAM_WAVE, STREAM_TAIL,
                   *STREAM_SHARES, ENUM6_BUCKET, ENUM6_REGION,
-                  ENUM10_BUCKET, ENUM10_REGION, ENUM_RUN_BUCKET,
-                  ENUM_RUN_REGION, ENUM_LIMIT,
+                  ENUM10_BUCKET, ENUM10_REGION, ENUM10_MESH_ROW,
+                  *ENUM_MESH_PAIRS, ENUM_RUN_BUCKET, ENUM_RUN_REGION,
+                  ENUM_LIMIT,
                   (1, 37, 300, False), (1, 1025, 129, False),
                   (1, 513, 700, False), (1, 4096, 510, False),
                   (5, 300, 64, False), (3, 200, 24, False, 5),
@@ -278,7 +309,9 @@ def _card() -> str:
 
 
 def _emit(phase: str, card: str, **kw) -> None:
-    print(json.dumps({"phase": phase, "card": card, **kw}), flush=True)
+    print(json.dumps({"phase": phase, "card": card, **kw,
+                      "script_seconds": time.monotonic() - START}),
+          flush=True)
 
 
 def _median_ms(fn, n: int = N_TIMED) -> float:
@@ -826,6 +859,21 @@ def phase_deep(card: str, tmp: str):
     return bam, fa, out, (launches, shapes), params["n_reads"]
 
 
+@contextlib.contextmanager
+def _environ(env):
+    """``env`` (or nothing) set in os.environ for the runs inside."""
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
     """One run through the CLI's main() in this process, the launch counts
     set to 0 just before and read just after. Returns (prefix,
@@ -836,20 +884,12 @@ def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
     prefix = os.path.join(tmp, label)
     argv = ["-b", bam, "-f", fa, "-o", prefix, "-p", "hifi-masseq",
             "--platform", "cuda", *extra]
-    saved = {k: os.environ.get(k) for k in (env or {})}
-    os.environ.update(env or {})
-    try:
+    with _environ(env):
         CK.reset_launches()
         t0 = time.monotonic()
         rc = cli.main(argv)
         wall = time.monotonic() - t0
         launches = dict(CK.LAUNCHES)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     if rc != 0:
         raise AssertionError(f"{label}: cli.main returned {rc}")
     return prefix, cli.LAST_RUN, launches, wall
@@ -978,8 +1018,16 @@ def _enum_workload(tmp: str, tag: str, label: str, contigs, seed: int):
     return res, [(nlaunch, nshapes), (nlaunch2, nshapes2)]
 
 
+def _phase_times(wall: float, out) -> dict:
+    """What phase mesh prints beside a run: its wall, region_phase and
+    phase_fused."""
+    return {"wall_seconds": wall,
+            "region_phase": out.stage_seconds.get("region_phase"),
+            "phase_fused": out.stage_seconds.get("phase_fused")}
+
+
 def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
-                  n_reads: int):
+                  n_reads: int, notes: dict):
     """The batched pipeline on the card: (a) the deep input with no
     --batched flag, held against the per-region run (b) of phase_deep;
     (d) the genome workload both ways; (e) the deep input in >= 3 waves
@@ -988,7 +1036,8 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     (g) and (i) two enumeration workloads (``_enum_workload``). After each
     run whose launches the kernel summary reports, the shapes of those
     launches must be shapes that phase_kernels checked. Returns (launch
-    counts, launch shapes) by run."""
+    counts, launch shapes) by run; ``notes`` gets the times of (a), (f)
+    and (i) for phase mesh."""
     from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
 
     # (a) AUTO resolves to the batched pipeline for the deep input's regions
@@ -1014,6 +1063,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         "stage_seconds": stage, "split_regions_kept": out.n_split_kept,
         "f64_reruns": out.n_f64_reruns},
         "b_equal_to_per_region": True}
+    notes["a"] = _phase_times(wall, out)
 
     # (d) the genome workload: 3 contigs, 8 loci, one 300x locus
     gbam, gfa = os.path.join(tmp, "genome.bam"), os.path.join(tmp, "genome.fa")
@@ -1067,6 +1117,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         raise AssertionError(f"(f) expected one bucket, got {fcensus}")
     _must_equal("(f) deep input as one wave vs default waves", _payloads(fp),
                 got)
+    notes["f"] = _phase_times(fwall, fout)
     cells = DEEP_BUCKET[0] * DEEP_BUCKET[1] * DEEP_BUCKET[2]
     res["f_deep_one_wave"] = {"wall_seconds": fwall, "launches": flaunch,
                               "launch_shapes": fshapes, "census": fcensus,
@@ -1102,6 +1153,8 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                 "dual_matvec_rows"]:
             raise AssertionError(f"(i) the batched run did not launch at "
                                  f"{_launch_key(shape)}")
+    notes["i"] = {k: res["i_enum_deep"]["batched"][k]
+                  for k in ("wall_seconds", "region_phase")}
     _emit("batched", card, **res)
     return {"batched": (launches, shapes),
             "one_wave": (flaunch, fshapes), "enum": enum_runs[0],
@@ -1192,9 +1245,10 @@ STREAM_LOCI = 13
 STREAM_STAGES = ("window_load", "discovery", "bam_emit", "bam_write_drain")
 
 
-def phase_stream(card: str, tmp: str):
+def phase_stream(card: str, tmp: str, notes: dict):
     """The bench's stream input through the CLI with --stream and with
-    --no-stream, at the default placement thresholds."""
+    --no-stream, at the default placement thresholds. ``notes`` gets the
+    resident leg's wall and reads/s for phase mesh."""
     from longcallr_tpu_torch.utils import malloc_tune
     from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
 
@@ -1261,6 +1315,8 @@ def phase_stream(card: str, tmp: str):
                 "dual_matvec_rows"]:
             raise AssertionError(f"the stream did not launch at "
                                  f"{_launch_key(shape)}")
+    notes["stream_resident"] = {
+        k: legs["resident"][k] for k in ("wall_seconds", "reads_per_second")}
     _emit("stream", card, reads=params["n_reads"], contigs=5,
           loci_per_contig=STREAM_LOCI, threads=8, generate_seconds=gen_s,
           equal=True, **legs)
@@ -1851,6 +1907,243 @@ def phase_profile(card: str, tmp: str) -> None:
     _emit("profile", card, byte_equal=True, attempts=tries)
 
 
+def _mesh_run(tmp: str, label: str, bam: str, fa: str, dev, mesh, extra=(),
+              env=None, contigs=None):
+    """caller.run(batched=True, mesh=mesh, contigs=contigs) with the
+    configuration the CLI builds for the same arguments, the launch counts
+    set to 0 just before and read just after. Returns (prefix,
+    CallerOutputs, launches, launches by mesh row, wall seconds)."""
+    from longcallr_tpu_torch import cli
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.pipeline.caller import run
+
+    prefix = os.path.join(tmp, label)
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["-b", bam, "-f", fa, "-o", prefix, "-p", "hifi-masseq", *extra]))
+    with _environ(env):
+        CK.reset_launches()
+        t0 = time.monotonic()
+        out = run(bam, fa, prefix, cfg, contigs=contigs, batched=True,
+                  device=dev, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    return (prefix, out, dict(CK.LAUNCHES),
+            {r: dict(v) for r, v in CK.LAUNCHES_BY_ROW.items()}, wall)
+
+
+def _records_on(bam, contigs) -> int:
+    """Records of a coordinate-sorted BamFile on ``contigs``."""
+    return sum(hi - lo for lo, hi in map(bam.contig_record_range, contigs))
+
+
+def _contigs_of(prefix: str, contigs) -> tuple:
+    """What a run restricted to ``contigs`` (the first contigs of the
+    reference, in order) must write, from the whole run at ``prefix``: the
+    VCF header and those contigs' records, and (the phased BAM being
+    written region by region in contig order) the payload's prefix that
+    ends with those contigs' records. Returns (VCF bytes, the number of
+    phased-BAM records, the whole payload)."""
+    from longcallr_tpu_torch.io.bam import BamFile
+
+    with open(prefix + ".vcf", "rb") as f:
+        lines = f.read().splitlines(keepends=True)
+    vcf = b"".join(l for l in lines if l.startswith(b"#")
+                   or l.split(b"\t", 1)[0].decode() in contigs)
+    n = _records_on(BamFile(prefix + ".phased.bam"), contigs)
+    return vcf, n, _payloads(prefix)[1]
+
+
+def _equal_on_contigs(what: str, prefix: str, whole: str, contigs) -> None:
+    """The run at ``prefix`` (restricted to ``contigs``) wrote those
+    contigs' share of the run at ``whole``: the same VCF lines, and a
+    phased-BAM payload that is the whole one's prefix with the same
+    number of records."""
+    from longcallr_tpu_torch.io.bam import BamFile
+
+    vcf, n, payload = _contigs_of(whole, contigs)
+    got_vcf, got = _payloads(prefix)
+    got_n = BamFile(prefix + ".phased.bam").n_records
+    if got_vcf != vcf or payload[:len(got)] != got or got_n != n:
+        raise AssertionError(f"{what}: VCF equal {got_vcf == vcf}, payload "
+                             f"a prefix {payload[:len(got)] == got}, records "
+                             f"{got_n} against {n}")
+
+
+def _rows_launched(what: str, mesh, by_row: dict, bucket: int) -> dict:
+    """Both kernels launched in each row that launched, and in at least as
+    many rows as the smallest bucket of the run fills (every row of a mesh
+    of that many rows or fewer). Returns the counts by row."""
+    want = min(mesh.shape[0], bucket)
+    both = [r for r, c in by_row.items()
+            if all(c.get(n, 0) > 0 for n in KERNEL_NAMES)]
+    if len(both) < want or len(both) != len(by_row):
+        raise AssertionError(f"{what}: launches by row {by_row}, expected "
+                             f"both kernels in at least {want} rows of "
+                             f"{mesh.shape}")
+    return {str(r): by_row[r] for r in sorted(by_row)}
+
+
+def _deep_bucket(dev, deep_input):
+    """The deep input's four regions as one bucket, each region's arrays
+    and random stream as the batched driver makes them: (BatchedRegions on
+    ``dev``, σ0, δ0, η0 (numpy), round counts, threefry keys)."""
+    from longcallr_tpu_torch.config import preset
+    from longcallr_tpu_torch.io.bam import BamFile
+    from longcallr_tpu_torch.io.fasta import FastaFile
+    from longcallr_tpu_torch.parallel import mesh as M
+    from longcallr_tpu_torch.phasing import optimize as O
+    from longcallr_tpu_torch.phasing import rng as R
+    from longcallr_tpu_torch.pipeline.caller import build_regions
+    from longcallr_tpu_torch.pipeline.engine import prepare_region
+
+    bam_path, fa = deep_input
+    cfg = preset("hifi-masseq")
+    bam, fasta = BamFile(bam_path, threads=4), FastaFile(fa)
+    regs = build_regions(bam, fasta, cfg)[0]
+    preps = [(reg,) + prepare_region(bam, reg, fasta.fetch(reg.chr), cfg,
+                                     dev)[:2] for reg in regs]
+    B = len(preps)
+    K = O._bucket(max(f.p.shape[0] for _, _, f in preps))
+    I = O._bucket(max(f.p.shape[1] for _, _, f in preps))
+    p, q = np.zeros((B, K, I), np.int8), np.zeros((B, K, I), np.uint8)
+    rb, sm, cons = (np.zeros((B, K), bool), np.zeros((B, I), bool),
+                    np.zeros((B, I), bool))
+    sigma0, delta0, eta0 = np.zeros((B, K)), np.ones((B, I)), np.ones((B, I))
+    rounds, keys = np.zeros(B, np.int64), []
+    for b, (reg, cands, frags) in enumerate(preps):
+        K0, I0 = frags.p.shape
+        p[b, :K0, :I0], q[b, :K0, :I0] = frags.p, frags.baseq
+        rb[b, :K0], sm[b, :I0] = frags.for_phasing, cands.for_phasing
+        rng = np.random.default_rng(np.random.SeedSequence([cfg.seed,
+                                                            reg.start]))
+        d0, c0 = O.init_haplotypes_ld(cands, O.compute_ld_blocks(cands, frags),
+                                      rng)
+        delta0[b, :I0], cons[b, :I0] = d0, c0
+        eta0[b, :I0] = O.init_genotype(cands)
+        sigma0[b] = np.where(rb[b], np.where(rng.random(K) < 0.5, -1.0, 1.0),
+                             0.0)
+        rounds[b] = I0 // 4 + 1
+        keys.append(R.prng_key(int(rng.integers(0, np.iinfo(np.int64).max,
+                                                dtype=np.int64))))
+    batch = M.BatchedRegions.from_numpy(p, q, rb, sm, cons, dev)
+    return batch, (sigma0, delta0, eta0), rounds, keys
+
+
+# the rounds of (d) and the stream contigs of (c) in phase mesh
+MESH_STATS_ROUNDS = 25
+MESH_STREAM_CONTIGS = ("chr1", "chr2")
+
+
+def _mesh_stats(dev, bucket, mesh) -> dict:
+    """(d): batched_perturbation_phase_stats on the deep bucket in split
+    mode, its first MESH_STATS_ROUNDS rounds, without a mesh and on
+    ``mesh``: the same states and trips, probs within REL_TOL."""
+    from longcallr_tpu_torch.parallel import mesh as M
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+
+    batch, states, rounds, keys = bucket
+    rounds = np.minimum(rounds, MESH_STATS_ROUNDS)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    sg, dl, et, pr = M.batched_cross_optimize(batch, *map(on, states),
+                                              keep_conserved=True, split=True)
+    res, walls, counts = {}, {}, {}
+    for label, m in (("bucket", None), ("mesh", mesh)):
+        CK.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        res[label] = M.batched_perturbation_phase_stats(
+            batch, sg, dl, et, pr, rounds, keys, split=True, mesh=m)
+        torch.cuda.synchronize()
+        walls[label] = time.monotonic() - t0
+        counts[label] = (dict(CK.LAUNCHES),
+                         _launched_shapes(f"(d) stats, {label}"),
+                         {r: dict(v) for r, v in CK.LAUNCHES_BY_ROW.items()})
+    (a, b) = res["bucket"], res["mesh"]
+    if not all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])):
+        raise AssertionError("(d) stats: the mesh's states differ")
+    rel = float(((a[3] - b[3]).abs() / a[3].abs()).max())
+    if not rel <= REL_TOL or a[4] != b[4] or a[4] <= 0:
+        raise AssertionError(f"(d) stats: probs {rel} apart, trips "
+                             f"{a[4]} / {b[4]}")
+    return {"mesh": list(mesh.shape), "rounds": int(rounds.max()),
+            "ascent_trips": a[4], "prob_max_rel_diff": rel,
+            "wall_seconds": walls, "launches": counts["bucket"][0],
+            "launches_mesh": counts["mesh"][0],
+            "launches_by_row": _rows_launched("(d) stats", mesh,
+                                              counts["mesh"][2], 4),
+            "launch_shapes_mesh": counts["mesh"][1], "equal": True}, \
+        (counts["mesh"][0], counts["mesh"][1])
+
+
+def phase_mesh(card: str, dev, tmp: str, deep_input, stream_input,
+               notes: dict) -> dict:
+    """The regions axis of the mesh through caller.run and the stats
+    schedule (legs (a) to (d) of the module docstring), on one card with
+    the card repeated along "regions" and, where this process sees more
+    than one card, once more over every card. Returns (launch counts,
+    launch shapes) by run."""
+    from longcallr_tpu_torch.parallel.mesh import make_mesh
+
+    from longcallr_tpu_torch.io.bam import BamFile
+
+    bam, fa = deep_input
+    sbam, sfa, _, _ = stream_input
+    s_reads = _records_on(BamFile(sbam), MESH_STREAM_CONTIGS)
+    meshes = [("", lambda n: make_mesh(n, 1, [dev] * n))]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("_cards", lambda n: make_mesh()))
+    bucket = _deep_bucket(dev, deep_input)
+    one_wave = {"LONGCALLR_WAVE_CELLS": str(1 << 40)}
+    res, runs = {}, {}
+    for tag, mk in meshes:
+        # (label, rows, input, extra CLI arguments, env, contigs, bytes to
+        # equal, smallest bucket, phase 6 or 8 numbers beside)
+        legs = [("mesh", 2, (bam, fa), (), None, None, "deep_batched", 2,
+                 "a"),
+                ("mesh_one_wave", 4, (bam, fa), (), one_wave, None,
+                 "deep_one_wave", 4, "f"),
+                ("mesh_enum", 4, (os.path.join(tmp, "enum_deep.bam"),
+                                  os.path.join(tmp, "enum_deep.fa")), (),
+                 None, None, "enum_deep_batched", 4, "i"),
+                ("mesh_stream", 4, (sbam, sfa), ("-t", "8"), None,
+                 MESH_STREAM_CONTIGS, "stream_resident", 5,
+                 "stream_resident")]
+        for (label, n, (ibam, ifa), extra, env, contigs, want, smallest,
+             beside) in legs:
+            mesh = mk(n)
+            name = label + tag
+            with _router(0 if label == "mesh_enum" else None):
+                prefix, out, launches, by_row, wall = _mesh_run(
+                    tmp, name, ibam, ifa, dev, mesh, extra, env, contigs)
+            shapes = _launched_shapes(name)
+            if contigs is None:
+                _must_equal(f"{name} vs {want}", _payloads(prefix),
+                            _payloads(os.path.join(tmp, want)))
+            else:
+                _equal_on_contigs(name, prefix, os.path.join(tmp, want),
+                                  contigs)
+            census = _census(out.stage_seconds)
+            kind = "phase_enum_buckets" if label == "mesh_enum" else \
+                "phase_buckets"
+            if census[kind] < 1:
+                raise AssertionError(f"{name}: no bucket on the mesh: "
+                                     f"{census}")
+            res[name] = {"mesh": list(mesh.shape), "census": census,
+                         "launches": launches,
+                         "launches_by_row": _rows_launched(name, mesh, by_row,
+                                                           smallest),
+                         "launch_shapes": shapes, **_phase_times(wall, out),
+                         "beside": notes[beside], "equal": True}
+            if contigs is not None:
+                res[name].update(contigs=list(contigs), reads=s_reads,
+                                 reads_per_second=s_reads / wall)
+            runs[name] = (launches, shapes)
+        res["mesh_stats" + tag], runs["mesh_stats" + tag] = _mesh_stats(
+            dev, bucket, mk(4))
+    _emit("mesh", card, cards=torch.cuda.device_count(), **res)
+    return runs
+
+
 def phase_imports(card: str) -> None:
     """The run imported neither jax nor any module of the JAX package."""
     bad = sorted(m for m in sys.modules
@@ -1882,12 +2175,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_goldens(card, dev, tmp)
         bam, fa, out, per_region, n_reads = phase_deep(card, tmp)
-        runs = phase_batched(card, tmp, bam, fa, out, n_reads)
+        notes = {}
+        runs = phase_batched(card, tmp, bam, fa, out, n_reads, notes)
         phase_split_vs_f64(card, tmp, bam, fa,
                            out.vcf_path[:-len(".vcf")])
-        stream_runs, stream_input = phase_stream(card, tmp)
+        stream_runs, stream_input = phase_stream(card, tmp, notes)
         runs.update(stream_runs)
         runs.update(phase_pod(card, tmp, stream_input))
+        runs.update(phase_mesh(card, dev, tmp, (bam, fa), stream_input,
+                               notes))
         phase_resume(card, tmp)
         phase_placement(card, dev, tmp)
         phase_analysis(card, dev, tmp)

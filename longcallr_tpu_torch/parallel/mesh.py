@@ -18,24 +18,40 @@ its round count are its own.
 through the hand kernels (on for CUDA tensors) or f64 (on the CPU);
 ``None`` resolves it from the bucket's device (``optimize.split_mode``).
 
-A mesh here is an explicit grid of ``torch.device``s (``make_mesh``), not a
-``jax.sharding.Mesh``; a plain list of devices serves as the "reads" axis.
-Along "regions" (``batched_phase_step``) a bucket is cut into one chunk per
-row of the grid and each chunk runs on its device. Along "reads"
-(``read_sharded_snp_sums``, ``sharded_cross_optimize``: one giant region)
-the rows of ``[K,I]`` are cut into one contiguous shard per device; the
-per-read half-step stays on its shard and the per-SNP partial sums are
-added in shard order in f64 on the first device, where the JAX package
-reduces with ``psum``: the result does not depend on timing.
+A mesh here is an explicit grid of ``torch.device``s of one type
+(``make_mesh``), not a ``jax.sharding.Mesh``; a plain list of devices serves
+as the "reads" axis.
+
+Along "regions" every bucket program takes ``mesh=``: the bucket is cut at
+``np.linspace(0, B, rows + 1)`` into one contiguous share per row of the
+grid (``shard_regions``; a row with no regions is skipped), each share runs
+on the first device of its row, and the rows run at the same time, one
+host thread each (``_run_rows``), where the JAX package shards the vmapped
+program over the devices. A row's launches stay ordered on its device's
+current stream, so rows that repeat one card serialise their device work
+there and overlap their host work. The results come back in region order
+on the device of the state arguments. A cut never changes a member's
+result (see above); only the loop of the perturbation schedule is the
+bucket's, as in the JAX program: every row runs to the largest round count
+of the whole bucket.
+
+Along "reads" (``read_sharded_snp_sums``, ``sharded_cross_optimize``: one
+giant region) the rows of ``[K,I]`` are cut into one contiguous shard per
+device; the per-read half-step stays on its shard and the per-SNP partial
+sums are added in shard order in f64 on the first device, where the JAX
+package reduces with ``psum``: the result does not depend on timing.
 """
 
 from __future__ import annotations
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..phasing import cuda_kernels as CK
 from ..phasing import kernels_fast as KF
 from ..phasing import optimize as O
 from ..phasing import rng as R
@@ -98,12 +114,126 @@ def make_mesh(n_regions_axis: Optional[int] = None,
     if n_regions_axis * n_reads_axis != n or n == 0:
         raise ValueError(f"a ({n_regions_axis}, {n_reads_axis}) mesh needs "
                          f"{n_regions_axis * n_reads_axis} devices, got {n}")
-    return Mesh(tuple(tuple(devices[r * n_reads_axis:(r + 1) * n_reads_axis])
+    mesh = Mesh(tuple(tuple(devices[r * n_reads_axis:(r + 1) * n_reads_axis])
                       for r in range(n_regions_axis)))
+    mesh_device(mesh)
+    return mesh
 
 
-def _split(batch: BatchedRegions, split: Optional[bool]) -> bool:
-    return O.split_mode(batch.p.device) if split is None else bool(split)
+def mesh_device(mesh: Mesh) -> torch.device:
+    """The first device of the grid. Raises ValueError where the grid mixes
+    device types (a CPU and a card): a mesh runs one kind of program."""
+    kinds = sorted({d.type for row in mesh.devices for d in row})
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh holds devices of one type, got {kinds}")
+    return mesh.devices[0][0]
+
+
+class RegionRows(NamedTuple):
+    """A bucket cut along the "regions" axis of a mesh (``shard_regions``):
+    for each row of the grid that holds regions, its index in the grid,
+    its first device, its bounds [b0, b1) in the bucket and its share,
+    which lies on that device."""
+
+    rows: Tuple[int, ...]
+    devices: Tuple[torch.device, ...]
+    bounds: Tuple[Tuple[int, int], ...]
+    batches: Tuple[BatchedRegions, ...]
+
+
+def shard_regions(batch: BatchedRegions, mesh: Mesh) -> RegionRows:
+    """Cut a bucket (tensors on any device, or host numpy arrays) into the
+    shares of the mesh's rows, each sent to the first device of its row.
+    The bucket programs take the result in place of a batch, so a bucket
+    that goes through several programs is cut and sent once."""
+    mesh_device(mesh)
+    B = batch.p.shape[0]
+    cut = np.linspace(0, B, mesh.shape[0] + 1).astype(int)
+    rows, devices, bounds, batches = [], [], [], []
+    for r, (b0, b1) in enumerate(zip(cut[:-1].tolist(), cut[1:].tolist())):
+        if b1 == b0:
+            continue
+        dev = mesh.devices[r][0]
+        rows.append(r)
+        devices.append(dev)
+        bounds.append((b0, b1))
+        batches.append(BatchedRegions(*(torch.as_tensor(a[b0:b1]).to(dev)
+                                        for a in batch)))
+    return RegionRows(tuple(rows), tuple(devices), tuple(bounds),
+                      tuple(batches))
+
+
+def _row_args(args, b0: int, b1: int, dev: torch.device, per_region: bool):
+    """A row's arguments: per-region ones cut to [b0, b1) (tensors, round
+    counts, lists of keys), shared ones whole; tensors sent to ``dev``."""
+    out = []
+    for a in args:
+        if per_region:
+            a = a[b0:b1]
+        out.append(a.to(dev) if isinstance(a, torch.Tensor) else a)
+    return out
+
+
+def _run_rows(rows: RegionRows, fn, per_region=(), shared=(),
+              home: Optional[torch.device] = None) -> list:
+    """``fn(i, share, *per-region args, *shared args)`` for every row i of
+    ``rows``, each row in a host thread of its own (the only row in the
+    calling thread), on the stream that is current on its device in the
+    calling thread; the launches of each thread are counted for its row
+    (``cuda_kernels.LAUNCHES_BY_ROW``). ``fn`` returns a tuple; its tensors
+    are sent to ``home`` inside the row's thread. Returns the rows'
+    tuples in row order."""
+    streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None
+               for d in rows.devices]
+
+    def one(i: int):
+        dev = rows.devices[i]
+        b0, b1 = rows.bounds[i]
+        args = (_row_args(per_region, b0, b1, dev, True)
+                + _row_args(shared, b0, b1, dev, False))
+        on_stream = (torch.cuda.stream(streams[i]) if streams[i] is not None
+                     else contextlib.nullcontext())
+        CK.set_launch_row(rows.rows[i])
+        try:
+            with on_stream:
+                out = fn(i, rows.batches[i], *args)
+                return tuple(o.to(home) if isinstance(o, torch.Tensor)
+                             and home is not None else o for o in out)
+        finally:
+            CK.set_launch_row(None)
+
+    n = len(rows.batches)
+    if n == 1:
+        return [one(0)]
+    with ThreadPoolExecutor(max_workers=n) as ex:
+        futures = [ex.submit(one, i) for i in range(n)]
+        return [f.result() for f in futures]
+
+
+def _rows_of(batch, mesh: Mesh) -> RegionRows:
+    """A bucket's rows: those it was cut into already, or its cut here."""
+    if isinstance(batch, RegionRows):
+        return batch
+    return shard_regions(batch, mesh)
+
+
+def _on_mesh(mesh: Mesh, batch, fn, per_region, shared=()) -> tuple:
+    """Run ``fn`` (see ``_run_rows``) over the rows of ``batch`` (a bucket,
+    cut here, or the RegionRows of one) and join its outputs along
+    regions, on the device of the first per-region argument."""
+    parts = _run_rows(_rows_of(batch, mesh), fn, per_region, shared,
+                      per_region[0].device)
+    return tuple(torch.cat([p[k] for p in parts]) for k in range(len(parts[0])))
+
+
+def _split(batch, split: Optional[bool]) -> bool:
+    """The mode of a program: ``split`` or, where None, the one of the
+    bucket's device (of its rows' devices, for a cut bucket)."""
+    if split is not None:
+        return bool(split)
+    if isinstance(batch, RegionRows):
+        return O.split_mode(batch.devices[0])
+    return O.split_mode(batch.p.device)
 
 
 def _tables(batch: BatchedRegions, sigma, split: bool):
@@ -114,9 +244,15 @@ def _tables(batch: BatchedRegions, sigma, split: bool):
 def batched_cross_optimize(batch: BatchedRegions, sigma, delta, eta,
                            keep_conserved: bool = True,
                            with_genotype: bool = False,
-                           split: Optional[bool] = None):
+                           split: Optional[bool] = None,
+                           mesh: Optional[Mesh] = None):
     """Full ≤21-iteration coordinate ascent over a region bucket.
     Returns (sigma, delta, eta, prob[B])."""
+    if mesh is not None:
+        return _on_mesh(mesh, batch, lambda i, b, sg, dl, et:
+                        batched_cross_optimize(b, sg, dl, et, keep_conserved,
+                                               with_genotype, split),
+                        (sigma, delta, eta))
     st, prob = O.cross_optimize(
         batch.cells, PhaseState(sigma, delta, eta), batch.read_base,
         batch.site_mask, batch.conserved, with_genotype, keep_conserved,
@@ -150,25 +286,15 @@ def batched_phase_step(batch: BatchedRegions, sigma, delta, eta,
     """One full coordinate-ascent sweep over a bucket of regions. Returns
     (sigma, delta, eta, improved[B]).
 
-    With a mesh, the bucket is cut along "regions" into one contiguous chunk
-    per row of the grid; each chunk runs on the first device of its row
-    (pure data parallelism, nothing is exchanged) and the results come back
-    in order to the bucket's device."""
-    if mesh is None:
-        return _one_sweep(batch, sigma, delta, eta, with_genotype,
-                          keep_conserved)
-    home = batch.p.device
-    bounds = np.linspace(0, batch.p.shape[0], mesh.shape[0] + 1).astype(int)
-    parts = []
-    for r, (b0, b1) in enumerate(zip(bounds[:-1], bounds[1:])):
-        if b1 == b0:
-            continue
-        dev = mesh.devices[r][0]
-        on = lambda a: a[b0:b1].to(dev)
-        chunk = BatchedRegions(*(on(a) for a in batch))
-        parts.append(_one_sweep(chunk, on(sigma), on(delta), on(eta),
-                                with_genotype, keep_conserved))
-    return tuple(torch.cat([p[k].to(home) for p in parts]) for k in range(4))
+    With a mesh, the bucket is cut along "regions" into one contiguous share
+    per row of the grid; the rows run at the same time, each on the first
+    device of its row (pure data parallelism, nothing is exchanged), and
+    the results come back in order to the device of ``sigma``."""
+    if mesh is not None:
+        return _on_mesh(mesh, batch, lambda i, b, sg, dl, et: _one_sweep(
+            b, sg, dl, et, with_genotype, keep_conserved), (sigma, delta, eta))
+    return _one_sweep(batch, sigma, delta, eta, with_genotype,
+                      keep_conserved)
 
 
 def _devices(mesh) -> List[torch.device]:
@@ -364,11 +490,16 @@ def _round_counts(n_rounds) -> np.ndarray:
 def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
                                best_eta, best_prob, n_rounds,
                                keys: Sequence[np.ndarray], with_iters: bool,
-                               split: bool, fts=None):
+                               split: bool, fts=None,
+                               n_loop: Optional[int] = None):
     """Shared body of batched_perturbation_phase and its _stats variant.
     ``fts``: prebuilt tables (batched_phase_fused shares one build across
     ascent, flip and schedule — valid because the active-read mask they
-    bake in is σ-sign-invariant, so the values are those of a rebuild)."""
+    bake in is σ-sign-invariant, so the values are those of a rebuild).
+    ``n_loop``: the rounds the loop runs (default: the most of any member;
+    a row of a mesh runs the whole bucket's). With ``with_iters`` the
+    trips of each ascent call (2 a round) are returned as a list after the
+    state."""
     if with_iters and not O.USE_FAST_KERNELS:
         raise RuntimeError("iteration accounting needs the fast-kernel ascent")
     B, K = best_sigma.shape
@@ -379,6 +510,8 @@ def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
         raise ValueError(f"{B} regions need {B} round counts and keys, got "
                          f"{rounds.shape[0]} and {len(keys)}")
     max_rounds = int(rounds.max()) if B else 0
+    if n_loop is not None:
+        max_rounds = max(max_rounds, int(n_loop))
     rb, sm, cons = batch.read_base, batch.site_mask, batch.conserved
 
     # the ascent tables are built once, outside the round loop: the
@@ -409,7 +542,7 @@ def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
 
     b_st = PhaseState(best_sigma, best_delta, best_eta)
     b_p = torch.as_tensor(best_prob, dtype=f64, device=dev)
-    iters = 0
+    trips: List[int] = []
 
     def keep(b_st, b_p, st_new, prob_new, active):
         better = active & (prob_new > b_p + TIE_TOL)
@@ -430,14 +563,49 @@ def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
         b_st, b_p = keep(b_st, b_p, st2, prob2, active)
         # every trip of a bucket's ascent moves all B members' tables:
         # the trips of the slowest member are the unit of the accounting
-        iters += it1 + it2
+        trips += [it1, it2]
     out = (b_st.sigma, b_st.delta, b_st.eta, b_p)
-    return out + (iters,) if with_iters else out
+    return out + (trips,) if with_iters else out
+
+
+def _bucket_loop(n_rounds) -> int:
+    """The rounds a bucket's schedule runs: the most of any member."""
+    rounds = _round_counts(n_rounds)
+    return int(rounds.max()) if rounds.size else 0
+
+
+def _perturbation_on_mesh(mesh: Mesh, batch, best_sigma, best_delta,
+                          best_eta, best_prob, n_rounds, keys,
+                          with_iters: bool, split: Optional[bool]):
+    """The schedule over the rows of a mesh, every row running the whole
+    bucket's loop. With ``with_iters`` the trips of each ascent call are
+    the most of any row's (the bucket's slowest member), summed over the
+    calls: the count of the schedule without a mesh."""
+    loop = _bucket_loop(n_rounds)
+    states = (best_sigma, best_delta, best_eta,
+              torch.as_tensor(best_prob, dtype=f64, device=best_sigma.device))
+
+    def row(i, b, sg, dl, et, pr, nr, ks):
+        out = _batched_perturbation_impl(b, sg, dl, et, pr, nr, ks,
+                                         with_iters, _split(b, split),
+                                         n_loop=loop)
+        return out[:4] + ((torch.as_tensor(out[4]),) if with_iters else ())
+
+    out = _on_mesh(mesh, batch, row,
+                   (*states, _round_counts(n_rounds), list(keys)))
+    if not with_iters:
+        return out
+    if not loop:
+        return out[:4] + (0,)
+    # the rows' trip lists, joined one after another: [rows, calls]
+    per_call = out[4].reshape(-1, 2 * loop)
+    return out[:4] + (int(per_call.max(dim=0).values.sum()),)
 
 
 def batched_perturbation_phase(batch: BatchedRegions, best_sigma, best_delta,
                                best_eta, best_prob, n_rounds, keys,
-                               split: Optional[bool] = None):
+                               split: Optional[bool] = None,
+                               mesh: Optional[Mesh] = None):
     """The perturbation schedule (phase.rs:1198-1233) over a region bucket:
     a loop to max(n_rounds) in which a member with t >= n_rounds[b] keeps
     its state.
@@ -446,6 +614,10 @@ def batched_perturbation_phase(batch: BatchedRegions, best_sigma, best_delta,
     region's perturbation stream depends only on its own seed — never on
     which other regions share its bucket or wave. Returns (sigma, delta,
     eta, prob[B]) of the per-region best states."""
+    if mesh is not None:
+        return _perturbation_on_mesh(mesh, batch, best_sigma, best_delta,
+                                     best_eta, best_prob, n_rounds, keys,
+                                     False, split)
     return _batched_perturbation_impl(batch, best_sigma, best_delta, best_eta,
                                       best_prob, n_rounds, keys, False,
                                       _split(batch, split))
@@ -454,22 +626,35 @@ def batched_perturbation_phase(batch: BatchedRegions, best_sigma, best_delta,
 def batched_perturbation_phase_stats(batch: BatchedRegions, best_sigma,
                                      best_delta, best_eta, best_prob,
                                      n_rounds, keys,
-                                     split: Optional[bool] = None):
+                                     split: Optional[bool] = None,
+                                     mesh: Optional[Mesh] = None):
     """batched_perturbation_phase plus the count of ascent trips: returns
     (sigma, delta, eta, prob[B], iters) where ``iters`` sums, over the
     ascent calls, the trips of the member that took most — each such trip
     streams every region's Dp twice (rows and cols matvec). States and
-    probs are those of batched_perturbation_phase. Fast-kernel path only."""
-    return _batched_perturbation_impl(batch, best_sigma, best_delta, best_eta,
-                                      best_prob, n_rounds, keys, True,
-                                      _split(batch, split))
+    probs are those of batched_perturbation_phase. Fast-kernel path only.
+    With a mesh, ``iters`` is the same count: per call the most of any
+    row's trips."""
+    if mesh is not None:
+        return _perturbation_on_mesh(mesh, batch, best_sigma, best_delta,
+                                     best_eta, best_prob, n_rounds, keys,
+                                     True, split)
+    *out, trips = _batched_perturbation_impl(
+        batch, best_sigma, best_delta, best_eta, best_prob, n_rounds, keys,
+        True, _split(batch, split))
+    return tuple(out) + (sum(trips),)
 
 
 def batched_overall_probability(batch: BatchedRegions, sigma, delta, eta,
-                                split: Optional[bool] = None):
+                                split: Optional[bool] = None,
+                                mesh: Optional[Mesh] = None):
     """cal_overall_probability per region of a bucket → prob[B]. In split
     mode via the split tables (the scale of the split-mode ascent
     objectives it is compared against); in f64 the exact spec kernel."""
+    if mesh is not None:
+        return _on_mesh(mesh, batch, lambda i, b, sg, dl, et: (
+            batched_overall_probability(b, sg, dl, et, split),),
+            (sigma, delta, eta))[0]
     if O.USE_FAST_KERNELS and _split(batch, split):
         ft = _tables(batch, sigma, True)
         return KF.fast_overall_probability32(ft, sigma, delta, eta)
@@ -486,13 +671,14 @@ def _flip_and_score(fts, batch: BatchedRegions, sigma, delta, eta, block_id):
     return sg2, dl2, prob2, margin
 
 
-def _need_split(batch: BatchedRegions, split: Optional[bool], what: str):
+def _need_split(batch, split: Optional[bool], what: str):
     if not (O.USE_FAST_KERNELS and _split(batch, split)):
         raise RuntimeError(f"{what} requires the f32 split tables")
 
 
 def batched_block_flip(batch: BatchedRegions, sigma, delta, eta, block_id,
-                       split: Optional[bool] = None):
+                       split: Optional[bool] = None,
+                       mesh: Optional[Mesh] = None):
     """Device block-flip pass (phase.rs:1298-1394) over a region bucket.
 
     Split mode only (the split tables are the operands): callers run
@@ -503,13 +689,18 @@ def batched_block_flip(batch: BatchedRegions, sigma, delta, eta, block_id,
     split branch; a region with margin < F32_BF_TOL had a near-tie block
     decision and must be recomputed with the exact host pass."""
     _need_split(batch, split, "the device block flip")
+    if mesh is not None:
+        return _on_mesh(mesh, batch, lambda i, b, sg, dl, et, bid:
+                        batched_block_flip(b, sg, dl, et, bid, True),
+                        (sigma, delta, eta, block_id))
     fts = _tables(batch, sigma, True)
     return _flip_and_score(fts, batch, sigma, delta, eta, block_id)
 
 
 def batched_phase_fused(batch: BatchedRegions, sigma0, delta0, eta0,
                         block_id, n_rounds, keys,
-                        split: Optional[bool] = None):
+                        split: Optional[bool] = None,
+                        mesh: Optional[Mesh] = None):
     """The bucket's entire iterative phase — first ascent (keep_conserved,
     phase.rs:1132) → block flip and flip score → keep-best → perturbation
     schedule — over one split-table build (split mode only).
@@ -520,8 +711,23 @@ def batched_phase_fused(batch: BatchedRegions, sigma0, delta0, eta0,
     the caller may choose fused or staged per bucket. Returns (sigma,
     delta, eta, prob[B], margin[B]); when any region's margin is inside the
     f32 envelope the caller discards the result and reruns the staged
-    path, whose host-exact block flip defines the semantics."""
+    path, whose host-exact block flip defines the semantics. With a mesh
+    the margins of every row come back, so the caller decides for the
+    whole bucket."""
     _need_split(batch, split, "the fused phase")
+    loop = _bucket_loop(n_rounds)
+    if mesh is not None:
+        return _on_mesh(mesh, batch, lambda i, b, *a: _phase_fused(
+            b, *a, n_loop=loop), (sigma0, delta0, eta0, block_id,
+                                  _round_counts(n_rounds), list(keys)))
+    return _phase_fused(batch, sigma0, delta0, eta0, block_id, n_rounds,
+                        keys, loop)
+
+
+def _phase_fused(batch: BatchedRegions, sigma0, delta0, eta0, block_id,
+                 n_rounds, keys, n_loop: int):
+    """batched_phase_fused on one device, its schedule running ``n_loop``
+    rounds."""
     # one build serves all three stages: the active-read mask it bakes in
     # (read_base & σ≠0) is σ-sign-invariant across the whole sequence
     fts = _tables(batch, sigma0, True)
@@ -539,22 +745,29 @@ def batched_phase_fused(batch: BatchedRegions, sigma0, delta0, eta0,
     best_pr = torch.where(better, prob2, prob1)
     sgf, dlf, etf, prf = _batched_perturbation_impl(
         batch, best_sg, best_dl, st1.eta, best_pr, n_rounds, keys, False,
-        True, fts=fts)
+        True, fts=fts, n_loop=n_loop)
     return sgf, dlf, etf, prf, margins
 
 
-def enum_tables(batch: BatchedRegions, split: Optional[bool] = None):
+def enum_tables(batch: BatchedRegions, split: Optional[bool] = None,
+                mesh: Optional[Mesh] = None):
     """Ascent tables of an enumeration bucket, one per region, for configs
     whose active-read set is the region's ``read_base`` (every config's σ
-    is non-zero on exactly those reads). None on the spec path."""
+    is non-zero on exactly those reads). None on the spec path. With a
+    mesh, a list of each row's tables on its device, for
+    ``batched_enum_cross_optimize`` on the same rows."""
     if not O.USE_FAST_KERNELS:
         return None
+    if mesh is not None:
+        return [t for (t,) in _run_rows(_rows_of(batch, mesh), lambda i, b: (
+            enum_tables(b, split),))]
     ones = batch.read_base.to(f64)
     return _tables(batch, ones, _split(batch, split))
 
 
 def batched_enum_cross_optimize(batch: BatchedRegions, sigma0, configs, eta0,
-                                split: Optional[bool] = None, fts=None):
+                                split: Optional[bool] = None, fts=None,
+                                mesh: Optional[Mesh] = None):
     """Enumeration path over a bucket: regions axis × configs axis.
 
     sigma0 [B,C,K] per-region per-config random inits; configs [C,I] shared
@@ -562,7 +775,15 @@ def batched_enum_cross_optimize(batch: BatchedRegions, sigma0, configs, eta0,
     [B,I]. Each region's configs share that region's tables (``fts``, from
     ``enum_tables``; built here when None) — the hand kernels read table
     b for the C members of region b. Returns (sigma, delta, eta)[B,C,...]
-    and prob[B,C]."""
+    and prob[B,C]. With a mesh, ``sigma0`` and ``eta0`` are cut with the
+    regions, ``configs`` goes whole to every row, and ``fts`` is
+    ``enum_tables``' list of the rows' tables."""
+    if mesh is not None:
+        return _on_mesh(mesh, batch, lambda i, b, sg0, et0, cf:
+                        batched_enum_cross_optimize(
+                            b, sg0, cf, et0, split,
+                            None if fts is None else fts[i]),
+                        (sigma0, eta0), (configs,))
     split = _split(batch, split)
     B, C, K = sigma0.shape
     I = configs.shape[-1]

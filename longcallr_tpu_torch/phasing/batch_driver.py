@@ -1,4 +1,4 @@
-"""Bucketed multi-region phasing (torch, one device).
+"""Bucketed multi-region phasing (torch, one device or a regions mesh).
 
 Port of ``longcallr_tpu/phasing/batch_driver.py``. Prepared regions are
 grouped by padded (K, I) bucket and a whole bucket runs through the
@@ -18,8 +18,15 @@ buckets, the enumeration buckets and the regions phased alone), and the
 placement by work: one router call per bucket
 (``utils/device.phase_problem_device``), and a bucket of little work on a
 card run goes member by member through the per-region path on the host.
-What does not: there is no mesh, and the bucket's cells travel in their
-2-byte form.
+
+With ``mesh=`` (``parallel/mesh.make_mesh``) every bucket is cut along the
+mesh's "regions" axis, once, and its rows run the bucket programs at the
+same time, as in the JAX package: no router call and no CPU cap for a
+bucket then, and BUCKET_MAX_BYTES bounds a row's share. The enumeration
+keep-best stays on the host; single enumeration regions, giant regions,
+the safety net's margins and its f64 recomputes stay on ``device``.
+
+What does not carry over: the bucket's cells travel in their 2-byte form.
 """
 
 from __future__ import annotations
@@ -87,12 +94,14 @@ class _Prepared:
 
 def phase_regions_batched(items: List[Tuple[FragmentMatrix, CandidateSet, int, bool]],
                           cfg: CallerConfig,
-                          device: Optional[torch.device] = None
+                          device: Optional[torch.device] = None,
+                          mesh: Optional[M.Mesh] = None
                           ) -> List[Optional[PhaseState]]:
     """Phase many regions on ``device`` (``None``: the CUDA device, and it
-    raises where there is none); returns per-item PhaseState (host numpy,
-    true unpadded shapes) in input order. Items with no candidates or no
-    fragments → None."""
+    raises where there is none), the buckets on the rows of ``mesh`` where
+    one is given; returns per-item PhaseState (host numpy, true unpadded
+    shapes) in input order. Items with no candidates or no fragments →
+    None."""
     device = resolve_device() if device is None else torch.device(device)
     out: List[Optional[PhaseState]] = [None] * len(items)
     buckets: Dict[Tuple[int, int], List[_Prepared]] = {}
@@ -125,9 +134,9 @@ def phase_regions_batched(items: List[Tuple[FragmentMatrix, CandidateSet, int, b
             out[it.index] = phase_region(it.frags, it.cands, cfg, it.seed,
                                          it.apply_ds, device=device)
         else:
-            _phase_enum_bucket(group, cfg, K, I0, device, out)
+            _phase_enum_bucket(group, cfg, K, I0, device, out, mesh)
     for (K, I_pad), group in sorted(buckets.items()):
-        _phase_bucket(group, cfg, K, I_pad, device, out)
+        _phase_bucket(group, cfg, K, I_pad, device, out, mesh)
     return out
 
 
@@ -151,6 +160,34 @@ def _fill_cells(group: List[_Prepared], K: int, I_pad: int):
         read_base[b, :K0] = it.frags.for_phasing & ds
         site_mask[b, :I0] = it.cands.for_phasing
     return p, bq, read_base, site_mask
+
+
+def _cap(K: int, I_pad: int, mesh) -> int:
+    """Members a bucket may hold: BUCKET_MAX_BYTES bounds one device's
+    share, so a mesh holds that many in each row."""
+    return _max_members(K, I_pad) * (1 if mesh is None else mesh.shape[0])
+
+
+def _bucket_on(group_arrays, device: torch.device, mesh):
+    """A bucket's arrays (host numpy) as the programs take them: a
+    BatchedRegions on ``device``, or cut over the rows of ``mesh``
+    (M.shard_regions). Returns (batch, the device of the state
+    arguments: ``device``, or the host for a mesh, whose rows take their
+    share of each state and hand back their results there)."""
+    if mesh is None:
+        return M.BatchedRegions.from_numpy(*group_arrays, device), device
+    return (M.shard_regions(M.BatchedRegions(*group_arrays), mesh),
+            torch.device("cpu"))
+
+
+def _f64_margins(device: torch.device, p, bq, read_base, site_mask, sgf,
+                 dlf, etf) -> np.ndarray:
+    """The safety net's f64 decision margins of a bucket's final states, in
+    one pass on ``device``."""
+    on = lambda a: torch.as_tensor(a, device=device)
+    return O.f64_decision_margin_batched(
+        on(p), on(bq), on(sgf), on(dlf), on(etf), on(read_base),
+        on(site_mask)).cpu().numpy()
 
 
 def _safety_net(split: bool) -> bool:
@@ -179,18 +216,20 @@ def _placed_on_host(group: List[_Prepared], cfg: CallerConfig, work: int,
 
 def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
                        I0: int, device: torch.device,
-                       out: List[Optional[PhaseState]]) -> None:
+                       out: List[Optional[PhaseState]], mesh=None) -> None:
     """Batched 2^I enumeration (phase.rs:1097-1122) for regions sharing the
     same config matrix; chunked over configs to bound memory."""
     I_pad = _bucket(max(1, I0))
-    bmax = _max_members(K, I_pad)
+    bmax = _cap(K, I_pad, mesh)
     if len(group) > bmax:
         for i in range(0, len(group), bmax):
-            _phase_enum_bucket(group[i:i + bmax], cfg, K, I0, device, out)
+            _phase_enum_bucket(group[i:i + bmax], cfg, K, I0, device, out,
+                               mesh)
         return
     B = len(group)
     C_est = enumeration_order(I0).shape[0]
-    if _placed_on_host(group, cfg, B * C_est * K * I_pad, device, out):
+    if mesh is None and _placed_on_host(group, cfg, B * C_est * K * I_pad,
+                                        device, out):
         return
     stage_add("phase_enum_buckets", 1)
     p, bq, read_base, site_mask = _fill_cells(group, K, I_pad)
@@ -205,13 +244,13 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         s = np.where(_region_rng(cfg, it.seed).random((C, K)) < 0.5, -1.0, 1.0)
         sig0[b] = np.where(read_base[b][None, :], s, 0.0)
 
-    dp = lambda a: torch.as_tensor(a, device=device)
-    split = O.split_mode(device)
-    batch = M.BatchedRegions.from_numpy(p, bq, read_base, site_mask,
-                                        np.zeros((B, I_pad), bool), device)
+    batch, home = _bucket_on((p, bq, read_base, site_mask,
+                              np.zeros((B, I_pad), bool)), device, mesh)
+    dp = lambda a: torch.as_tensor(a, device=home)
+    split = O.split_mode(device if mesh is None else M.mesh_device(mesh))
     # every config's σ is non-zero exactly on read_base: one table build per
     # region serves all its configs and all chunks
-    fts = M.enum_tables(batch, split)
+    fts = M.enum_tables(batch, split, mesh=mesh)
     eta0_d = dp(eta0)
 
     chunk = max(1, int(2 ** 24 // max(1, B * K * I_pad)))
@@ -223,7 +262,7 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
     for c0 in range(0, C, chunk):
         sg, dl, et, pr = M.batched_enum_cross_optimize(
             batch, dp(sig0[:, c0:c0 + chunk]), dp(configs[c0:c0 + chunk]),
-            eta0_d, split=split, fts=fts)
+            eta0_d, split=split, fts=fts, mesh=mesh)
         pr = pr.cpu().numpy()                    # [B, chunk]
         all_pr.append(pr)
         for b in range(B):
@@ -238,9 +277,8 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
             if sel >= 0:
                 best[b] = (sg[b, sel], dl[b, sel], et[b, sel])
                 best_idx[b] = c0 + sel
-    sgf_d, dlf_d, etf_d = (torch.stack([best[b][k] for b in range(B)])
-                           for k in range(3))
-    sgf, dlf, etf = (a.cpu().numpy() for a in (sgf_d, dlf_d, etf_d))
+    sgf, dlf, etf = (torch.stack([best[b][k] for b in range(B)]).cpu().numpy()
+                     for k in range(3))
     for b, it in enumerate(group):
         K0, _ = it.frags.p.shape
         out[it.index] = PhaseState(sgf[b, :K0], dlf[b, :I0], etf[b, :I0])
@@ -258,9 +296,7 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
                 O._note(kept=True)
         return
     pr_all = np.concatenate(all_pr, axis=1)          # [B, C]
-    margins = O.f64_decision_margin_batched(
-        batch.p, batch.q, sgf_d, dlf_d, etf_d, batch.read_base,
-        batch.site_mask).cpu().numpy()
+    margins = _f64_margins(device, p, bq, read_base, site_mask, sgf, dlf, etf)
     for b, it in enumerate(group):
         others = np.delete(pr_all[b], int(best_idx[b]))
         cfg_gap = (best_prob[b] - float(others.max())
@@ -275,19 +311,21 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
 
 def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
                   I_pad: int, device: torch.device,
-                  out: List[Optional[PhaseState]]) -> None:
-    cap = _max_members(K, I_pad)
-    if device.type == "cpu":
+                  out: List[Optional[PhaseState]], mesh=None) -> None:
+    cap = _cap(K, I_pad, mesh)
+    if mesh is None and device.type == "cpu":
         cap = min(cap, max(1, CPU_BUCKET_B_CAP))
     if len(group) > cap:
         # output-invariant: per-region seed streams, per-member tables
         for i in range(0, len(group), cap):
-            _phase_bucket(group[i:i + cap], cfg, K, I_pad, device, out)
+            _phase_bucket(group[i:i + cap], cfg, K, I_pad, device, out, mesh)
         return
 
     B = len(group)
     max_rounds = max(it.frags.p.shape[1] // 4 + 1 for it in group)
-    if _placed_on_host(group, cfg, B * K * I_pad * max_rounds, device, out):
+    if mesh is None and _placed_on_host(group, cfg,
+                                        B * K * I_pad * max_rounds, device,
+                                        out):
         return
     stage_add("phase_buckets", 1)
     conserved = np.zeros((B, I_pad), bool)
@@ -299,8 +337,6 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
     region_keys = []
     _t = time.monotonic()
     p, bq, read_base, site_mask = _fill_cells(group, K, I_pad)
-    dp = lambda a: torch.as_tensor(a, device=device)
-    p_d, q_d, rb_d, sm_d = dp(p), dp(bq), dp(read_base), dp(site_mask)
     stage_add("phase_tables", time.monotonic() - _t)
 
     # per-region LD blocks and state init. Each region consumes its OWN rng
@@ -324,12 +360,13 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
             int(rng.integers(0, np.iinfo(np.int64).max, dtype=np.int64))))
 
     _t = time.monotonic()
-    batch = M.BatchedRegions(p=p_d, q=q_d, read_base=rb_d, site_mask=sm_d,
-                             conserved=dp(conserved))
+    batch, home = _bucket_on((p, bq, read_base, site_mask, conserved), device,
+                             mesh)
+    dp = lambda a: torch.as_tensor(a, device=home)
     stage_add("phase_tables", time.monotonic() - _t)
     _t = time.monotonic()
 
-    split = O.split_mode(device)
+    split = O.split_mode(device if mesh is None else M.mesh_device(mesh))
     device_flip = bool(O.USE_FAST_KERNELS and split)
     bid_np = np.full((B, I_pad), -1, np.int32)
     for b in range(B):
@@ -347,7 +384,7 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         # host-exact flip defines the semantics.
         sgf_d, dlf_d, etf_d, _, margins = M.batched_phase_fused(
             batch, dp(sigma0), dp(delta0), dp(eta0), dp(bid_np), n_rounds,
-            region_keys, split=True)
+            region_keys, split=True, mesh=mesh)
         if bool((margins >= KF.F32_BF_TOL).all()):
             sgf, dlf, etf = host(sgf_d, dlf_d, etf_d)
         else:
@@ -361,7 +398,7 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         # 1) first ascent (keep_conserved=True, phase.rs:1132)
         sg, dl, et, prob1 = M.batched_cross_optimize(
             batch, dp(sigma0), dp(delta0), dp(eta0), keep_conserved=True,
-            with_genotype=False, split=split)
+            with_genotype=False, split=split, mesh=mesh)
         sg_np, dl_np, et_np, prob1_np = host(sg, dl, et, prob1)
         stage_add("phase_ascent1", time.monotonic() - _t)
         _t = time.monotonic()
@@ -388,7 +425,7 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         prob2_np = None
         if device_flip:
             sg2_d, dl2_d, prob2_d, margins = M.batched_block_flip(
-                batch, sg, dl, et, dp(bid_np), split=True)
+                batch, sg, dl, et, dp(bid_np), split=True, mesh=mesh)
             sg2, dl2, prob2_np, margins_np = host(sg2_d, dl2_d, prob2_d,
                                                   margins)
             sg2, dl2, prob2_np = sg2.copy(), dl2.copy(), prob2_np.copy()
@@ -404,7 +441,8 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
                 # prob2 scored the device flip); members are numerically
                 # independent, so a kept value never depends on bucket-mates
                 pr_re = M.batched_overall_probability(
-                    batch, dp(sg2), dp(dl2), et, split=True).cpu().numpy()
+                    batch, dp(sg2), dp(dl2), et, split=True,
+                    mesh=mesh).cpu().numpy()
                 prob2_np[bad] = pr_re[bad]
         elif cfg.threads > 1 and B > 1:
             with ThreadPoolExecutor(max_workers=min(cfg.threads, B)) as ex:
@@ -417,7 +455,8 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         # re-optimizing, phase.rs:1139-1144) and keep the per-region best
         if prob2_np is None:
             prob2_np = M.batched_overall_probability(
-                batch, dp(sg2), dp(dl2), et, split=split).cpu().numpy()
+                batch, dp(sg2), dp(dl2), et, split=split,
+                mesh=mesh).cpu().numpy()
         better = prob2_np > prob1_np + TIE_TOL
         best_sg = np.where(better[:, None], sg2, sg_np)
         best_dl = np.where(better[:, None], dl2, dl_np)
@@ -429,7 +468,7 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         sgf_d, dlf_d, etf_d, _ = M.batched_perturbation_phase(
             batch, dp(best_sg), dp(best_dl), et,
             dp(best_prob.astype(np.float64)), n_rounds, region_keys,
-            split=split)
+            split=split, mesh=mesh)
         sgf, dlf, etf = host(sgf_d, dlf_d, etf_d)
         stage_add("phase_perturb", time.monotonic() - _t)
         _t = time.monotonic()
@@ -445,9 +484,7 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
             for _ in group:
                 O._note(kept=True)
         return
-    margins = O.f64_decision_margin_batched(
-        batch.p, batch.q, sgf_d, dlf_d, etf_d, batch.read_base,
-        batch.site_mask).cpu().numpy()
+    margins = _f64_margins(device, p, bq, read_base, site_mask, sgf, dlf, etf)
     for b, it in enumerate(group):
         # not (>=): a NaN margin means the f64 re-evaluation itself
         # degenerated — recompute, the polarity of the flip gates

@@ -49,21 +49,29 @@ streams get different workspaces.
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls are not
 counted), so a run can show that its main path went through the kernels;
 ``LAUNCH_SHAPES`` holds the (tables, K, I, members per table) of those
-launches, so the run can also show at which shapes.
+launches, so the run can also show at which shapes. ``LAUNCHES_BY_DEVICE``
+counts them per card (device index) and ``LAUNCHES_BY_ROW`` per row of a
+regions mesh: ``parallel/mesh.py`` names the row of each thread it runs
+(``set_launch_row``), so a run can show that every row launched, also
+where the rows repeat one card. ``reset_launches`` clears all four.
 """
 
 from __future__ import annotations
 
 import functools
 import threading
-from typing import Dict, Set, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 
 LAUNCHES = {"dual_matvec_rows": 0, "matvec_cols": 0}
 LAUNCH_SHAPES: Dict[str, Set[Tuple[int, int, int, int]]] = {
     "dual_matvec_rows": set(), "matvec_cols": set()}
+LAUNCHES_BY_DEVICE: Dict[int, Dict[str, int]] = {}
+LAUNCHES_BY_ROW: Dict[int, Dict[str, int]] = {}
 _count_lock = threading.Lock()
+# the mesh row on whose behalf a thread launches (None: no row)
+_launch_row = threading.local()
 
 # the cols kernel's block: 256 threads, 4 rows in flight per thread, at most
 # 1024 rows of σ staged per block (csrc/split_matvec.cu)
@@ -100,15 +108,29 @@ def reset_launches() -> None:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             LAUNCH_SHAPES[k].clear()
+        LAUNCHES_BY_DEVICE.clear()
+        LAUNCHES_BY_ROW.clear()
 
 
-def _count(name: str, hi: torch.Tensor, g: int) -> None:
-    """One launch of ``name`` on tables ``hi`` with g members per table."""
+def set_launch_row(row: Optional[int]) -> None:
+    """Count this thread's launches for row ``row`` of a regions mesh from
+    now on (None: for no row)."""
+    _launch_row.index = row
+
+
+def _count(name: str, hi: torch.Tensor, g: int, device_index: int) -> None:
+    """One launch of ``name`` on tables ``hi`` with g members per table, on
+    the card ``device_index``."""
     shape = (hi.shape[0] if hi.dim() == 3 else 1, hi.shape[-2], hi.shape[-1],
              g)
+    row = getattr(_launch_row, "index", None)
     with _count_lock:
         LAUNCHES[name] += 1
         LAUNCH_SHAPES[name].add(shape)
+        for table, key in ((LAUNCHES_BY_DEVICE, device_index),
+                           (LAUNCHES_BY_ROW, row)):
+            if key is not None:
+                table.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += 1
 
 
 def _widen(hi, lo, lead: int) -> torch.Tensor:
@@ -342,7 +364,7 @@ def dual_matvec_rows(hi: torch.Tensor, lo: torch.Tensor, x: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"split_dual_matvec_rows launch failed: "
                                f"cudaError {err}")
-        _count("dual_matvec_rows", hi, g)
+        _count("dual_matvec_rows", hi, g, dev.index)
     else:
         out.zero_()
     return out
@@ -376,7 +398,7 @@ def matvec_cols(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"split_matvec_cols launch failed: "
                                f"cudaError {err}")
-        _count("matvec_cols", hi, g)
+        _count("matvec_cols", hi, g, dev.index)
     else:
         out.zero_()
     return out

@@ -182,6 +182,22 @@ def snp_q_for(s_match, s_flip, s_refe, s_alte, cov, eta):
     return torch.where(eta == 0, q1, torch.where(eta == 1, q3, q4))
 
 
+def phase_score_q(ct: CellTables, sigma, delta_i, read_mask,
+                  col_mask) -> torch.Tensor:
+    """cal_phase_score_log for one SNP column (phase.rs:238-255): scalar
+    1 - L(δ)/(L(+1)+L(-1)) with η=0, over the masked cells of that column.
+
+    ``col_mask``[k,i] selects exactly the gathered cells; delta_i ∈ {±1}.
+    Returns the surrogate q (phase score is -10·log10(1-q) at the caller).
+    """
+    m = col_mask & ct.exists & read_mask[:, None]
+    x_plus = sigma[:, None] * 1.0
+    lp = _masked_sum(m, _cell_term(ct, x_plus), (-2, -1))
+    lm = _masked_sum(m, _cell_term(ct, -x_plus), (-2, -1))
+    l_cur = torch.where(torch.as_tensor(delta_i) > 0, lp, lm)
+    return 1.0 - l_cur / (lp + lm)
+
+
 def overall_probability(ct: CellTables, sigma, delta, eta, read_mask,
                         site_mask):
     """cal_overall_probability (phase.rs:257-276): Σ log10 aki over

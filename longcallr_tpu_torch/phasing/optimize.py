@@ -251,6 +251,15 @@ def _cross_optimize_fast_loop_it(ct, st: PhaseState, read_base, site_mask,
     return st, objective(ft, st.sigma, st.delta, st.eta), trips
 
 
+def cross_optimize_fast(ct, st: PhaseState, read_base, site_mask, conserved,
+                        with_genotype: bool, keep_conserved: bool,
+                        split: bool = False):
+    """The matvec-form ascent whatever LONGCALLR_FAST_KERNELS says. Returns
+    (final state, overall log10 probability)."""
+    return _cross_optimize_fast_loop(ct, st, read_base, site_mask, conserved,
+                                     with_genotype, keep_conserved, split)
+
+
 def cross_optimize(ct, st: PhaseState, read_base, site_mask, conserved,
                    with_genotype: bool, keep_conserved: bool,
                    split: bool = False, ft=None):
@@ -268,6 +277,38 @@ def cross_optimize(ct, st: PhaseState, read_base, site_mask, conserved,
 # safety-net margin, objective, perturbation schedule
 # ---------------------------------------------------------------------------
 
+def _decision_gap(q, qn, upd, sums, site_mask) -> torch.Tensor:
+    """The smaller of the reads' |q − q_flip| (where ``upd``) and the SNPs'
+    top-2 gap among the four (δ, η) candidates of ``sums``."""
+    inf = torch.full((), float("inf"), dtype=f64, device=q.device)
+    sig_gap = torch.where(upd, (q - qn).abs(), inf).min(dim=-1).values
+    qs = torch.stack(snp_qs(*sums))                       # [4, ..., I]
+    upds = site_mask & (sums[4] > 0)
+    mx = qs.max(dim=0).values
+    am = qs.argmax(dim=0)
+    ar4 = torch.arange(4, device=qs.device).reshape(4, *([1] * am.dim()))
+    second = torch.where(ar4 == am[None], -inf, qs).max(dim=0).values
+    snp_gap = torch.where(upds, mx - second, inf).min(dim=-1).values
+    return torch.minimum(sig_gap, snp_gap)
+
+
+def f64_decision_margin(ct, st: PhaseState, read_base,
+                        site_mask) -> torch.Tensor:
+    """Smallest decision gap at the final state, in exact f64 (reference
+    form): per read the |q − q_flip| separation, per SNP the top-2 gap among
+    the four (δ, η) candidates of the genotype re-argmax. A gap below the
+    split error bound means a split-mode run may have taken another branch
+    than f64 would — the safety net's trigger. (The final state need not be
+    an argmax fixed point, so only a margin's magnitude says anything.)
+    ``f64_decision_margin_fast`` is the matvec form the safety net runs."""
+    ct = as_tables(ct)
+    rm0 = read_base & (st.sigma != 0)
+    lp, lm, ncell = read_logliks(ct, st.delta, st.eta, site_mask)
+    q, qn = sigma_q(lp, lm, st.sigma)
+    sums = snp_sums(ct, st.sigma, st.delta, rm0, site_mask)
+    return _decision_gap(q, qn, rm0 & (ncell > 0), sums, site_mask)
+
+
 def f64_decision_margin_fast(p8, q8, sigma, delta, eta, read_base,
                              site_mask) -> torch.Tensor:
     """Smallest decision gap at a final state, in exact f64 (matvec form):
@@ -279,19 +320,9 @@ def f64_decision_margin_fast(p8, q8, sigma, delta, eta, read_base,
     rm0 = read_base & (sigma != 0)
     ft = KF.make_fast_tables(ct, rm0, site_mask)
     lp, lm, ncell = KF.fast_read_logliks(ft, delta, eta)
-    upd = rm0 & (ncell > 0)
     q, qn = sigma_q(lp, lm, sigma)
-    inf = torch.full((), float("inf"), dtype=f64, device=sigma.device)
-    sig_gap = torch.where(upd, (q - qn).abs(), inf).min(dim=-1).values
     sums = KF.fast_snp_sums(ft, sigma, delta)
-    qs = torch.stack(snp_qs(*sums))                       # [4, ..., I]
-    upds = site_mask & (sums[4] > 0)
-    mx = qs.max(dim=0).values
-    am = qs.argmax(dim=0)
-    ar4 = torch.arange(4, device=qs.device).reshape(4, *([1] * am.dim()))
-    second = torch.where(ar4 == am[None], -inf, qs).max(dim=0).values
-    snp_gap = torch.where(upds, mx - second, inf).min(dim=-1).values
-    return torch.minimum(sig_gap, snp_gap)
+    return _decision_gap(q, qn, rm0 & (ncell > 0), sums, site_mask)
 
 
 def f64_decision_margin_batched(p8, q8, sigma, delta, eta, read_base,

@@ -15,7 +15,11 @@ next window loading and the last contig's records deflating under the
 current contig's compute. ``resume=True`` keeps a ``<prefix>.regions.ckpt``
 of completed regions (``pipeline/resume.py``) in both entry points. Every
 device stage runs on the ``device`` given to the entry point; worker
-threads are handed it explicitly.
+threads are handed it explicitly. ``run(mesh=...)`` phases the batched
+pipeline's buckets on the rows of a regions mesh
+(``parallel/mesh.make_mesh``; ``phasing/batch_driver.py``), as the JAX
+package's ``run`` does; the per-region loop and ``run_streaming`` take no
+mesh, as there.
 
 Environment knobs of the batched pipeline (the JAX package's, with its
 defaults): LONGCALLR_CAND_BATCH_COLS and LONGCALLR_WAVE_CELLS bound a
@@ -331,9 +335,12 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
         contigs: Optional[Sequence[str]] = None,
         anno_path: Optional[str] = None,
         resume: bool = False, batched: Optional[bool] = None,
-        device: Optional[torch.device] = None) -> CallerOutputs:
+        device: Optional[torch.device] = None,
+        mesh=None) -> CallerOutputs:
     """Resident run on ``device`` (``None``: the CUDA device, and it raises
-    where there is none).
+    where there is none). ``mesh``: the batched pipeline phases each
+    bucket on the rows of this regions mesh (``parallel/mesh.make_mesh``);
+    everything else stays on ``device``.
 
     ``resume=True`` keeps a <prefix>.regions.ckpt JSONL of completed
     regions and skips them on restart.
@@ -414,7 +421,7 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
             if batched:
                 results = _run_batched(bam, fasta, regions, cfg,
                                        input_candidates, exon_regions, ckpt,
-                                       device,
+                                       device, mesh=mesh,
                                        on_wave=(ov.wave_done if ov else None))
             elif cfg.threads > 1 and len(regions) > 1:
                 with ThreadPoolExecutor(max_workers=cfg.threads) as ex:
@@ -728,9 +735,11 @@ def run_streaming(bam_path: str, ref_path: str, output_prefix: str,
 
 
 def _run_batched(bam, fasta, regions, cfg, input_candidates, exon_regions,
-                 ckpt: RegionCheckpoint, device: torch.device, on_wave=None):
+                 ckpt: RegionCheckpoint, device: torch.device, mesh=None,
+                 on_wave=None):
     """Three-stage batched pipeline: threaded host prepare → bucketed
-    device phasing (phasing/batch_driver.py) → host finalize.
+    device phasing (phasing/batch_driver.py; on the rows of ``mesh`` where
+    one is given) → host finalize.
 
     ``on_wave``: called with a list of (region_index, RegionResult) pairs
     as each wave finalizes (and once up front for checkpointed and skipped
@@ -859,13 +868,16 @@ def _run_batched(bam, fasta, regions, cfg, input_candidates, exon_regions,
 
     def _phase_wave(prep):
         """A wave's bucketed phasing. Every launch stays on the device's
-        default stream, whichever thread calls: the phase worker and the
-        prepare worker (candidates) are then ordered on the card, and the
-        cols kernel's per-stream workspace is shared safely. The host
-        reads results through synchronising copies."""
+        default stream, whichever thread calls: the phase worker, the
+        threads of a mesh's rows (each on the stream current in the phase
+        worker, the default one) and the prepare worker (candidates) are
+        then ordered on each card, and the cols kernel's per-stream
+        workspace is shared safely. The host reads results through
+        synchronising copies."""
         todo, phase_items, phase_index = prep
         _t = time.monotonic()
-        states = phase_regions_batched(phase_items, cfg, device=device)
+        states = phase_regions_batched(phase_items, cfg, device=device,
+                                       mesh=mesh)
         stage_add("phase", time.monotonic() - _t)
         return todo, phase_index, states
 

@@ -6,6 +6,9 @@ of ``longcallr_tpu.phasing.kernels_fast``. The CUDA kernels themselves are
 compared with the plain versions on the card by ``chip_smoke.py``.
 """
 
+import sys
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -107,26 +110,86 @@ def test_cpu_calls_do_not_count_launches(rng):
     assert CK.LAUNCHES == before
 
 
+def _saved_launch_record():
+    return (dict(CK.LAUNCHES), {k: set(v) for k, v in CK.LAUNCH_SHAPES.items()},
+            {k: dict(v) for k, v in CK.LAUNCHES_BY_DEVICE.items()},
+            {k: dict(v) for k, v in CK.LAUNCHES_BY_ROW.items()})
+
+
+def _restore_launch_record(saved):
+    CK.LAUNCHES.update(saved[0])
+    for k, v in saved[1].items():
+        CK.LAUNCH_SHAPES[k] = v
+    for table, old in zip((CK.LAUNCHES_BY_DEVICE, CK.LAUNCHES_BY_ROW),
+                          saved[2:]):
+        table.clear()
+        table.update(old)
+
+
 def test_launch_record_counts_and_shapes():
-    """A launch is recorded under (tables, K, I, members per table), and
-    reset_launches clears counts and shapes."""
-    saved = dict(CK.LAUNCHES), {k: set(v) for k, v in CK.LAUNCH_SHAPES.items()}
+    """A launch is recorded under (tables, K, I, members per table) and
+    under its card, and reset_launches clears counts, shapes and the
+    per-card and per-row counts."""
+    saved = _saved_launch_record()
     try:
         CK.reset_launches()
         assert CK.LAUNCHES == {"dual_matvec_rows": 0, "matvec_cols": 0}
         assert all(not v for v in CK.LAUNCH_SHAPES.values())
-        CK._count("matvec_cols", torch.zeros(12, 64, 8), 16)
-        CK._count("matvec_cols", torch.zeros(12, 64, 8), 16)
-        CK._count("dual_matvec_rows", torch.zeros(64, 8), 16)
+        CK._count("matvec_cols", torch.zeros(12, 64, 8), 16, 0)
+        CK._count("matvec_cols", torch.zeros(12, 64, 8), 16, 1)
+        CK._count("dual_matvec_rows", torch.zeros(64, 8), 16, 0)
         assert CK.LAUNCHES == {"dual_matvec_rows": 1, "matvec_cols": 2}
         assert CK.LAUNCH_SHAPES == {"dual_matvec_rows": {(1, 64, 8, 16)},
                                     "matvec_cols": {(12, 64, 8, 16)}}
+        assert CK.LAUNCHES_BY_DEVICE == {
+            0: {"dual_matvec_rows": 1, "matvec_cols": 1},
+            1: {"dual_matvec_rows": 0, "matvec_cols": 1}}
+        assert CK.LAUNCHES_BY_ROW == {}       # no mesh row named
         CK.reset_launches()
         assert all(not v for v in CK.LAUNCH_SHAPES.values())
+        assert not CK.LAUNCHES_BY_DEVICE
     finally:
-        CK.LAUNCHES.update(saved[0])
-        for k, v in saved[1].items():
-            CK.LAUNCH_SHAPES[k] = v
+        _restore_launch_record(saved)
+
+
+def test_launches_are_counted_by_mesh_row_across_threads():
+    """Threads that name their mesh row (set_launch_row) are counted per
+    row, on one card too; eight threads with a short switch interval lose
+    no count, and reset_launches clears the rows."""
+    saved = _saved_launch_record()
+    interval = sys.getswitchinterval()
+    hi = torch.zeros(2, 16, 8)
+    try:
+        CK.reset_launches()
+        sys.setswitchinterval(1e-6)
+        start = threading.Barrier(8, timeout=30)
+
+        def row(r: int) -> None:
+            CK.set_launch_row(r % 4)
+            start.wait()
+            for _ in range(250):
+                CK._count("dual_matvec_rows", hi, 1, 0)
+                CK._count("matvec_cols", hi, 1, 0)
+            CK.set_launch_row(None)
+
+        threads = [threading.Thread(target=row, args=(r,)) for r in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        CK._count("matvec_cols", hi, 1, 0)     # this thread names no row
+        assert CK.LAUNCHES == {"dual_matvec_rows": 2000, "matvec_cols": 2001}
+        assert CK.LAUNCHES_BY_DEVICE == {
+            0: {"dual_matvec_rows": 2000, "matvec_cols": 2001}}
+        assert CK.LAUNCHES_BY_ROW == {
+            r: {"dual_matvec_rows": 500, "matvec_cols": 500}
+            for r in range(4)}
+        CK.reset_launches()
+        assert not CK.LAUNCHES_BY_ROW and not CK.LAUNCHES_BY_DEVICE
+    finally:
+        sys.setswitchinterval(interval)
+        _restore_launch_record(saved)
 
 
 @pytest.mark.parametrize("bad", ["dtype_split", "dtype_operand", "shape",

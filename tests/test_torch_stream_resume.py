@@ -407,11 +407,11 @@ def test_batched_resume_wave_granularity(tmp_path, rng, monkeypatch,
     calls = {"n": 0}
     orig = TBD.phase_regions_batched
 
-    def boom(items, cfg_, device=None):
+    def boom(items, cfg_, device=None, mesh=None):
         calls["n"] += 1
         if calls["n"] == 2:
             raise RuntimeError("injected crash")
-        return orig(items, cfg_, device=device)
+        return orig(items, cfg_, device=device, mesh=mesh)
 
     monkeypatch.setattr(TBD, "phase_regions_batched", boom)
     with pytest.raises(RuntimeError, match="injected crash"):
@@ -425,8 +425,8 @@ def test_batched_resume_wave_granularity(tmp_path, rng, monkeypatch,
     seen = []
     monkeypatch.setattr(
         TBD, "phase_regions_batched",
-        lambda items, cfg_, device=None: seen.append(len(items))
-        or orig(items, cfg_, device=device))
+        lambda items, cfg_, device=None, mesh=None: seen.append(len(items))
+        or orig(items, cfg_, device=device, mesh=mesh))
     out = run(bam, fa, str(tmp_path / "o1"), cfg, resume=True, batched=True,
               device=CPU)
     assert seen == [1]                       # only what was lost
@@ -476,8 +476,8 @@ def test_resume_recomputes_what_a_cut_checkpoint_lost(tmp_path, monkeypatch):
     orig = TBD.phase_regions_batched
     monkeypatch.setattr(
         TBD, "phase_regions_batched",
-        lambda items, cfg_, device=None: seen.append(len(items))
-        or orig(items, cfg_, device=device))
+        lambda items, cfg_, device=None, mesh=None: seen.append(len(items))
+        or orig(items, cfg_, device=device, mesh=mesh))
     again = run(bam, fa, str(tmp_path / "c"), cfg, resume=True, device=CPU)
     assert sum(seen) == 2
     assert (_read(again.vcf_path), _read(again.phased_bam_path)) == want
