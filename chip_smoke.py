@@ -147,7 +147,24 @@ package) and fails on the first check that does not hold:
                Every row launches both kernels (cuda_kernels.
                LAUNCHES_BY_ROW), only at shapes phase 2 checked;
                region_phase, phase_fused and walls are printed beside
-               phases 6 and 8.
+               phases 6 and 8;
+ 19. graphs  — (run right after phase 8) the perturbation schedule as CUDA
+               graphs (phasing/graphs.py) against the same steps launched
+               eagerly (graphs.ENABLED off, then on): each wrapper alone
+               under capture gives a graph of one kernel node whose replay
+               equals the eager call bit for bit; the deep input through
+               the CLI at the default waves and as one wave of 4, one deep
+               region through phase_region and the stream input resident
+               with 8 threads: bytes, sorted HP/PS tags and the launch
+               census equal, replays only with graphs on and both kernels
+               launched inside graphs there; replays, captures, capture
+               seconds, region_phase, phase_fused, wall and the device peak
+               of each run, and the device's idle share (torch.profiler,
+               kernel rows) over the schedule of a bucket of the leg's
+               shapes with graphs off and on.
+
+Every phase runs with graphs on (the default) but the off legs of phase
+19.
 
 The goldens of phase 4 and the enumeration workloads of phase 6 run with
 the placement off (everything on the card, as before there was one): at its
@@ -166,7 +183,8 @@ deep run, ``launches_per_region`` the per-region one,
 ``launches_enum_deep_per_region`` the two of (i), ``launches_stream`` and
 ``launches_stream_resident`` the two legs of phase 8,
 ``launches_pod_2p_p0``, ``launches_pod_2p_p1`` and ``launches_pod_1p_p0``
-the workers of phase 12, ``launches_stats`` phase 15, ``launches_mesh``
+the workers of phase 12, ``launches_stats`` phase 15, ``launches_graphs_*``
+the runs with graphs of phase 19, ``launches_mesh``
 (a)'s run on the (2, 1) mesh and ``launches_mesh_*`` the other runs of
 phase 18 (``_cards``: over every card); each timed shape lists
 under ``launched_by`` the runs that launched the kernel there), the card's
@@ -1789,15 +1807,14 @@ def phase_giant(card: str, dev, stream_input) -> None:
           snp_sums_max_rel_diff=worst_sums, hand_kernel_launches=0)
 
 
-def phase_stats(card: str, dev, deep_input) -> dict:
-    """perturbation_phase_stats on one deep region on the card in split
-    mode: its state and prob equal perturbation_phase's on the same inputs,
-    it counts > 0 ascent trips, and it launches both kernels (at shapes
-    phase_kernels checked). Returns (launch counts, launch shapes)."""
+def _region_schedule(dev, deep_input):
+    """The first region of the deep input after its first ascent on the
+    card in split mode, as phase_region brings it to the perturbation
+    schedule: (region, K, I padded, rounds, the arguments of
+    optimize.perturbation_phase)."""
     from longcallr_tpu_torch.config import preset
     from longcallr_tpu_torch.io.bam import BamFile
     from longcallr_tpu_torch.io.fasta import FastaFile
-    from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import optimize as O
     from longcallr_tpu_torch.phasing import rng as R
     from longcallr_tpu_torch.phasing.kernels import CompactCells
@@ -1836,6 +1853,18 @@ def phase_stats(card: str, dev, deep_input) -> dict:
                                       dtype=np.int64)))
     args = (ct, st1, st1, prob1, on(rb), on(sm), on(cons), n_rounds, key,
             True)
+    return reg, K, I_pad, n_rounds, args
+
+
+def phase_stats(card: str, dev, deep_input) -> dict:
+    """perturbation_phase_stats on one deep region on the card in split
+    mode: its state and prob equal perturbation_phase's on the same inputs,
+    it counts > 0 ascent trips, and it launches both kernels (at shapes
+    phase_kernels checked). Returns (launch counts, launch shapes)."""
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import optimize as O
+
+    reg, K, I_pad, n_rounds, args = _region_schedule(dev, deep_input)
     res, walls = {}, {}
     for name, fn in (("plain_schedule", O.perturbation_phase),
                      ("stats", O.perturbation_phase_stats)):
@@ -1983,9 +2012,10 @@ def _rows_launched(what: str, mesh, by_row: dict, bucket: int) -> dict:
     return {str(r): by_row[r] for r in sorted(by_row)}
 
 
-def _deep_bucket(dev, deep_input):
-    """The deep input's four regions as one bucket, each region's arrays
-    and random stream as the batched driver makes them: (BatchedRegions on
+def _deep_bucket(dev, deep_input, contig=None, n=None):
+    """The deep input's four regions as one bucket (or the first ``n``
+    regions of ``contig`` of another input), each region's arrays and
+    random stream as phase_regions_batched makes them: (BatchedRegions on
     ``dev``, σ0, δ0, η0 (numpy), round counts, threefry keys)."""
     from longcallr_tpu_torch.config import preset
     from longcallr_tpu_torch.io.bam import BamFile
@@ -1998,8 +2028,14 @@ def _deep_bucket(dev, deep_input):
 
     bam_path, fa = deep_input
     cfg = preset("hifi-masseq")
-    bam, fasta = BamFile(bam_path, threads=4), FastaFile(fa)
-    regs = build_regions(bam, fasta, cfg)[0]
+    fasta = FastaFile(fa)
+    if contig is None:
+        bam = BamFile(bam_path, threads=4)
+        regs = build_regions(bam, fasta, cfg)[0]
+    else:
+        clen = dict(fasta.contig_lengths)[contig]
+        bam = BamFile(bam_path, threads=4, region=(contig, 0, clen))
+        regs = build_regions(bam, fasta, cfg, contigs=[contig])[0][:n]
     preps = [(reg,) + prepare_region(bam, reg, fasta.fetch(reg.chr), cfg,
                                      dev)[:2] for reg in regs]
     B = len(preps)
@@ -2144,6 +2180,258 @@ def phase_mesh(card: str, dev, tmp: str, deep_input, stream_input,
     return runs
 
 
+def _graph_nodes(dev) -> dict:
+    """Each hand kernel's wrapper called alone under CUDA graph capture, at
+    the deep bucket's shape: the graph holds one kernel node (a launch of
+    this package's library, which links its own CUDA runtime, became a node
+    of PyTorch's capture), the capture recorded one launch, and a replay
+    writes the eager call's result bit for bit."""
+    import ctypes
+
+    from longcallr_tpu_torch import _build
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+
+    rng = np.random.default_rng(19)
+    B, K, I = DEEP_BUCKET[:3]
+    hi, lo = _split_dp(rng, (B, K, I), dev)
+    x = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], size=(B, I, 2)),
+                        device=dev)
+    sg = torch.as_tensor(rng.choice([-1.0, 0.0, 1.0], size=(B, K)),
+                         device=dev)
+    side = torch.cuda.Stream(dev)
+    res = {}
+    for name, call in (("dual_matvec_rows",
+                        lambda: CK.dual_matvec_rows(hi, lo, x)),
+                       ("matvec_cols", lambda: CK.matvec_cols(hi, lo, sg))):
+        with torch.cuda.stream(side):
+            want = call()   # eager on the capture's stream: its workspace
+            side.synchronize()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with CK.recording() as launches:
+                graph.capture_begin(capture_error_mode="thread_local")
+                out = call()
+                graph.capture_end()
+            n = ctypes.c_int(-1)
+            err = _build.load().graph_kernel_nodes(graph.raw_cuda_graph(),
+                                                   ctypes.byref(n))
+            graph.instantiate()
+            out.zero_()
+            graph.replay()
+        torch.cuda.synchronize()
+        if err or n.value != 1 or len(launches) != 1 \
+                or not torch.equal(out, want):
+            raise AssertionError(f"{name} under capture: error {err}, "
+                                 f"{n.value} kernel nodes, {len(launches)} "
+                                 f"launches recorded, replay equal "
+                                 f"{torch.equal(out, want)}")
+        res[name] = {"kernel_nodes": n.value, "replay_equal": True}
+        del graph
+    CK.take_workspaces(dev, side.cuda_stream)
+    return res
+
+
+def _idle_share(run, graphs_on: bool) -> tuple:
+    """One call of ``run`` (a schedule) with graphs on or off: its wall
+    (host clock, ending in a synchronise), then a second call under
+    torch.profiler for the device time of its kernels (DeviceType.CUDA rows
+    only) and the device's idle share, 1 − busy / wall. Returns (the first
+    call's result, the numbers)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    saved = G.ENABLED
+    G.ENABLED = graphs_on
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        busy_us = 0.0
+        for attempt in range(4):    # a profile now and then traces nothing
+            time.sleep(0.2 * attempt)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            busy_us = sum(e.self_device_time_total
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA)
+            if busy_us > 0:
+                break
+    finally:
+        G.ENABLED = saved
+    busy = busy_us / 1e6
+    return out, {"wall_seconds": wall, "device_busy_seconds": busy,
+                 "idle_share": 1.0 - busy / wall if busy > 0 else None}
+
+
+def _bucket_schedule(dev, bucket, n=None):
+    """batched_perturbation_phase of ``bucket`` (its first ``n`` regions)
+    after a first ascent, split mode: a callable for _idle_share."""
+    from longcallr_tpu_torch.parallel import mesh as M
+
+    batch, states, rounds, keys = bucket
+    if n is not None:
+        batch = M.BatchedRegions(*(a[:n] for a in batch))
+        states, rounds, keys = ([a[:n] for a in states], rounds[:n],
+                                keys[:n])
+    on = lambda a: torch.as_tensor(a, device=dev)
+    sg, dl, et, pr = M.batched_cross_optimize(batch, *map(on, states),
+                                              keep_conserved=True, split=True)
+    return lambda: M.batched_perturbation_phase(batch, sg, dl, et, pr,
+                                                rounds, keys, split=True)
+
+
+def _schedule_ab(what: str, run) -> dict:
+    """The schedule ``run`` with graphs off and on: the same result, and
+    each one's wall, device busy time and idle share."""
+    a, off = _idle_share(run, False)
+    b, on = _idle_share(run, True)
+    if not all(torch.equal(x, y) for x, y in zip(_flat(a), _flat(b))):
+        raise AssertionError(f"{what}: the schedule differs with graphs on")
+    return {"graphs_off": off, "graphs_on": on}
+
+
+def _flat(out) -> list:
+    return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
+
+
+def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
+                   env=None) -> dict:
+    """One input through the CLI's main() with graphs off, then on: VCF
+    bytes, phased-BAM payload and sorted HP/PS tags equal, the launch
+    census (counts and shapes) equal, graph replays only with graphs on,
+    and both kernels launched inside graphs there; the peak of allocated
+    device memory of each run above what was allocated before it. Returns
+    the two runs' numbers and (launches, shapes) of the run with graphs."""
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    legs = {}
+    for on in (False, True):
+        G.ENABLED = on
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            prefix, out, launches, wall = _cli_run(
+                tmp, f"graphs_{label}_{'on' if on else 'off'}", bam, fa,
+                extra, env)
+        finally:
+            G.ENABLED = True
+        legs[on] = {"prefix": prefix, "launches": launches,
+                    "peak_device_bytes": torch.cuda.max_memory_allocated()
+                    - held,
+                    "shapes": _launched_shapes(f"graphs {label} {on}"),
+                    "graphs": dict(CK.GRAPHS),
+                    "graph_launches": dict(CK.GRAPH_LAUNCHES),
+                    "census": _census(out.stage_seconds),
+                    **_phase_times(wall, out)}
+    a, b = legs[False], legs[True]
+    _must_equal(f"graphs {label}: off vs on", _payloads(a["prefix"]),
+                _payloads(b["prefix"]))
+    if _records_and_tags(a["prefix"]) != _records_and_tags(b["prefix"]):
+        raise AssertionError(f"graphs {label}: records or tags differ")
+    if (a["launches"], a["shapes"]) != (b["launches"], b["shapes"]):
+        raise AssertionError(f"graphs {label}: launch census off "
+                             f"{a['launches']} vs on {b['launches']}")
+    if a["graphs"]["replays"] or not b["graphs"]["replays"] or not all(
+            b["graph_launches"][n] > 0 and b["launches"][n] > 0
+            for n in KERNEL_NAMES):
+        raise AssertionError(f"graphs {label}: replays off "
+                             f"{a['graphs']}, on {b['graphs']}, kernels "
+                             f"in graphs {b['graph_launches']}")
+    res = {("graphs_on" if on else "graphs_off"):
+           {k: v for k, v in leg.items() if k not in ("prefix", "shapes")}
+           for on, leg in legs.items()}
+    res["equal"] = True
+    return res, (b["launches"], b["shapes"])
+
+
+def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
+    """The perturbation schedule as CUDA graphs against the same steps
+    launched eagerly (phasing/graphs.py; graphs.ENABLED off, then on):
+    first each wrapper alone under capture (``_graph_nodes``); then the
+    deep input through the CLI at the default waves and as one wave of 4,
+    one deep region through phase_region, and the stream input resident
+    with 8 threads, each leg byte-equal with the census equal, with the
+    graph replays, captures and capture seconds, region_phase, phase_fused
+    and wall of both runs, and the device's idle share over one bucket's
+    schedule of the leg's shapes (the deep bucket of 4, a default wave of
+    2, the region's own schedule, the first wave of 5 of the stream's
+    first contig). Returns (launch counts, launch shapes) by run."""
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
+    from longcallr_tpu_torch.phasing import optimize as O
+    from longcallr_tpu_torch.config import preset
+    from longcallr_tpu_torch.io.bam import BamFile
+    from longcallr_tpu_torch.io.fasta import FastaFile
+    from longcallr_tpu_torch.pipeline.caller import build_regions
+    from longcallr_tpu_torch.pipeline.engine import prepare_region
+
+    bam, fa = deep_input
+    sbam, sfa = stream_input[:2]
+    res = {"capture": _graph_nodes(dev)}
+    runs = {}
+    deep = _deep_bucket(dev, deep_input)
+    one_wave = {"LONGCALLR_WAVE_CELLS": str(1 << 40)}
+    for label, args, env, sched in (
+            ("deep", (bam, fa, ()), None, _bucket_schedule(dev, deep, 2)),
+            ("deep_one_wave", (bam, fa, ()), one_wave,
+             _bucket_schedule(dev, deep)),
+            ("stream_resident", (sbam, sfa, ("--no-stream", "-t", "8")),
+             None, _bucket_schedule(dev, _deep_bucket(
+                 dev, (sbam, sfa), contig="chr1", n=5)))):
+        res[label], runs[f"graphs_{label}"] = _graphs_cli_ab(
+            tmp, label, *args, env=env)
+        res[label]["schedule"] = _schedule_ab(label, sched)
+    del deep
+
+    # one deep region through phase_region, and its schedule alone
+    cfg = preset("hifi-masseq")
+    dbam, fasta = BamFile(bam, threads=4), FastaFile(fa)
+    reg = build_regions(dbam, fasta, cfg)[0][0]
+    cands, frags, apply_ds = prepare_region(dbam, reg, fasta.fetch(reg.chr),
+                                            cfg, dev)
+    legs = {}
+    for on in (False, True):
+        G.ENABLED = on
+        try:
+            CK.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = O.phase_region(frags, cands, cfg, reg.start, apply_ds, dev)
+            wall = time.perf_counter() - t0
+        finally:
+            G.ENABLED = True
+        legs[on] = {"state": st, "launches": dict(CK.LAUNCHES),
+                    "shapes": _launched_shapes(f"graphs region {on}"),
+                    "graphs": dict(CK.GRAPHS),
+                    "graph_launches": dict(CK.GRAPH_LAUNCHES),
+                    "wall_seconds": wall}
+    a, b = legs[False], legs[True]
+    if not all(np.array_equal(x, y) for x, y in zip(a["state"], b["state"])):
+        raise AssertionError("graphs region: phase_region differs")
+    if (a["launches"], a["shapes"]) != (b["launches"], b["shapes"]) or \
+            not b["graphs"]["replays"] or a["graphs"]["replays"] or \
+            not all(b["graph_launches"][n] > 0 for n in KERNEL_NAMES):
+        raise AssertionError(f"graphs region: census off {a['launches']}, "
+                             f"on {b['launches']}, graphs {b['graphs']}")
+    runs["graphs_region"] = (b["launches"], b["shapes"])
+    _, K, I_pad, n_rounds, sargs = _region_schedule(dev, deep_input)
+    res["region"] = {
+        "region": str(reg), "equal": True,
+        **{("graphs_on" if on else "graphs_off"):
+           {k: v for k, v in leg.items() if k not in ("state", "shapes")}
+           for on, leg in legs.items()},
+        "schedule": _schedule_ab("region", lambda: O.perturbation_phase(
+            *sargs))}
+    _emit("graphs", card, **res)
+    return runs
+
+
 def phase_imports(card: str) -> None:
     """The run imported neither jax nor any module of the JAX package."""
     bad = sorted(m for m in sys.modules
@@ -2181,6 +2469,7 @@ def main() -> int:
                            out.vcf_path[:-len(".vcf")])
         stream_runs, stream_input = phase_stream(card, tmp, notes)
         runs.update(stream_runs)
+        runs.update(phase_graphs(card, dev, tmp, (bam, fa), stream_input))
         runs.update(phase_pod(card, tmp, stream_input))
         runs.update(phase_mesh(card, dev, tmp, (bam, fa), stream_input,
                                notes))

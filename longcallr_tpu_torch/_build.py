@@ -61,6 +61,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.split_matvec_cols.restype = i
     lib.split_matvec_cols.argtypes = [vp, vp, i, vp, vp, vp, vp, i, i, i, i,
                                       i, i, i, vp]
+    lib.graph_kernel_nodes.restype = i
+    lib.graph_kernel_nodes.argtypes = [vp, ctypes.POINTER(i)]
 
 
 def load() -> ctypes.CDLL:

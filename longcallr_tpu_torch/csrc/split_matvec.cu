@@ -61,11 +61,18 @@
 // launches that share them must be ordered on one stream.
 //
 // C interface (loaded with ctypes): each entry point launches on the given
-// device and stream, allocates nothing, and returns cudaGetLastError().
+// device and stream, allocates nothing, and returns cudaGetLastError(). The
+// launches may be captured into a CUDA graph by PyTorch (phasing/graphs.py):
+// this library links its own copy of the CUDA runtime, but streams and
+// graphs belong to the CUDA context that every runtime of the process
+// shares, so a launch onto a capturing stream becomes a node of that graph;
+// graph_kernel_nodes counts such nodes to show it.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 namespace {
 
@@ -530,6 +537,28 @@ int split_matvec_cols(const float* hi, const float* lo, int g,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
+  return (int)cudaSuccess;
+}
+
+// The kernel nodes of a CUDA graph (a cudaGraph_t) into *n.
+int graph_kernel_nodes(void* graph, int* n) {
+  cudaGraph_t g = (cudaGraph_t)graph;
+  size_t count = 0;
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &count);
+  if (e != cudaSuccess) return (int)e;
+  std::vector<cudaGraphNode_t> nodes(count);
+  if (count) {
+    e = cudaGraphGetNodes(g, nodes.data(), &count);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int kernels = 0;
+  for (size_t i = 0; i < count; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e != cudaSuccess) return (int)e;
+    kernels += type == cudaGraphNodeTypeKernel;
+  }
+  *n = kernels;
   return (int)cudaSuccess;
 }
 

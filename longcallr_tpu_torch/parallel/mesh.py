@@ -9,8 +9,10 @@ region axis first and run on the device they lie on: every elementwise
 step and both hand-kernel matvecs (``cuda_kernels``, one table per member)
 take the whole bucket in one launch, and an ascent is the masked loop of
 ``optimize._ascend`` — each member freezes when its own continue flag
-drops, the loop ends when the last one has, with one host sync per trip
-for the whole bucket. A member's result never depends on its bucket-mates:
+drops, the loop ends when the last one has, with one host read of the
+flag per chunk of trips for the whole bucket; the perturbation schedule
+runs as CUDA graphs on the card (``optimize._run_schedule``,
+``phasing/graphs.py``). A member's result never depends on its bucket-mates:
 its tables, its random draws (``keys``, one threefry key per region) and
 its round count are its own.
 
@@ -519,12 +521,11 @@ def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
     if O.USE_FAST_KERNELS:
         if fts is None:
             fts = _tables(batch, best_sigma, split)
-        ascend = lambda st0: O._cross_optimize_fast_loop_it(
-            None, st0, rb, sm, cons, False, False, split, ft=fts)
+        steps = O._fast_steps(fts, rb, best_sigma, sm, cons, False, False,
+                              split)
     else:
-        ct_full = expand_cells(batch.cells)
-        ascend = lambda st0: O._cross_optimize_loop(
-            ct_full, st0, rb, sm, cons, False, False) + (0,)
+        steps = O._spec_steps(expand_cells(batch.cells), rb, sm, cons, False,
+                              False)
 
     # every round's randoms of every region, drawn up front from the
     # region's own key at the padded sizes: (t, b) draws are those of
@@ -534,38 +535,22 @@ def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
         raise ValueError(f"{max_rounds} rounds exceed the {R_max} drawn for "
                          f"I = {I}")
     draws = [R.predraw_rounds(np.asarray(k), K, I) for k in keys]
-    rg_all = torch.as_tensor(np.stack([d[0][:max_rounds] for d in draws]),
-                             device=dev)                   # [B,R,I]
-    fl_all = torch.as_tensor(np.stack([d[1][:max_rounds] for d in draws]),
-                             device=dev)                   # [B,R,K]
-    rounds_d = torch.as_tensor(rounds, device=dev)
-
-    b_st = PhaseState(best_sigma, best_delta, best_eta)
-    b_p = torch.as_tensor(best_prob, dtype=f64, device=dev)
-    trips: List[int] = []
-
-    def keep(b_st, b_p, st_new, prob_new, active):
-        better = active & (prob_new > b_p + TIE_TOL)
-        return (O._select(better, st_new, b_st),
-                torch.where(better, prob_new, b_p))
-
-    for t in range(max_rounds):
-        active = rounds_d > t          # a member past its rounds keeps its state
-        lowv = 1.0 if t % 2 == 1 else -1.0
-        rg = rg_all[:, t]
-        delta = torch.where(rg < 0.1, lowv,
-                            torch.where(rg >= 0.9, -lowv, b_st.delta))
-        st1, prob1, it1 = ascend(b_st._replace(delta=delta))
-        b_st, b_p = keep(b_st, b_p, st1, prob1, active)
-        fl = (fl_all[:, t] < 0.1) & rb & (b_st.sigma != 0)
-        sigma = torch.where(fl, -b_st.sigma, b_st.sigma)
-        st2, prob2, it2 = ascend(b_st._replace(sigma=sigma))
-        b_st, b_p = keep(b_st, b_p, st2, prob2, active)
-        # every trip of a bucket's ascent moves all B members' tables:
-        # the trips of the slowest member are the unit of the accounting
-        trips += [it1, it2]
+    rg_all = torch.as_tensor(np.stack([d[0][:max_rounds] for d in draws],
+                                      axis=1), device=dev)     # [R,B,I]
+    fl_all = torch.as_tensor(np.stack([d[1][:max_rounds] for d in draws],
+                                      axis=1), device=dev)     # [R,B,K]
+    # the schedule runs the bucket's loop on the device (optimize.
+    # _run_schedule); a member past its rounds keeps its state
+    b_st, b_p, trips = O._run_schedule(
+        steps, PhaseState(best_sigma, best_delta, best_eta),
+        torch.as_tensor(best_prob, dtype=f64, device=dev), rb, rg_all,
+        fl_all, max_rounds, torch.as_tensor(rounds, device=dev),
+        O.USE_FAST_KERNELS)
     out = (b_st.sigma, b_st.delta, b_st.eta, b_p)
-    return out + (trips,) if with_iters else out
+    # every trip of a bucket's ascent moves all B members' tables: the
+    # trips of the slowest member of each ascent call (2 a round) are the
+    # unit of the accounting, copied back once
+    return out + (trips.reshape(-1).tolist(),) if with_iters else out
 
 
 def _bucket_loop(n_rounds) -> int:

@@ -53,11 +53,25 @@ launches, so the run can also show at which shapes. ``LAUNCHES_BY_DEVICE``
 counts them per card (device index) and ``LAUNCHES_BY_ROW`` per row of a
 regions mesh: ``parallel/mesh.py`` names the row of each thread it runs
 (``set_launch_row``), so a run can show that every row launched, also
-where the rows repeat one card. ``reset_launches`` clears all four.
+where the rows repeat one card. ``reset_launches`` clears all four and the
+graph counters below.
+
+Under CUDA graph capture (``phasing/graphs.py``) a wrapper's launch becomes
+a node of the graph and runs only when the graph is replayed: the capture
+records each launch instead of counting it (``recording``), and each replay
+adds the recorded launches to the four counts, for the row of the thread
+that replays (``count_replay``). So a run counts the same launches with
+graphs as without. ``GRAPHS`` counts the replays, the captures and the
+seconds the captures took, ``GRAPH_LAUNCHES`` the launches that replays
+added. A capture's cols workspace (it runs on a stream
+of its own) is taken out of ``_WORKSPACES`` afterwards and kept by its
+graph (``take_workspaces``): a later call that grows the workspace of that
+stream would otherwise free memory that the graph writes at every replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import Dict, Optional, Set, Tuple
@@ -69,9 +83,15 @@ LAUNCH_SHAPES: Dict[str, Set[Tuple[int, int, int, int]]] = {
     "dual_matvec_rows": set(), "matvec_cols": set()}
 LAUNCHES_BY_DEVICE: Dict[int, Dict[str, int]] = {}
 LAUNCHES_BY_ROW: Dict[int, Dict[str, int]] = {}
+# CUDA graphs of the phase programs: replays, captures, capture seconds;
+# and the launches that replays added to LAUNCHES
+GRAPHS = {"replays": 0, "captures": 0, "capture_seconds": 0.0}
+GRAPH_LAUNCHES = {"dual_matvec_rows": 0, "matvec_cols": 0}
 _count_lock = threading.Lock()
-# the mesh row on whose behalf a thread launches (None: no row)
+# the mesh row on whose behalf a thread launches (None: no row), and the
+# launches a capture in this thread records (None: not capturing)
 _launch_row = threading.local()
+_recorded = threading.local()
 
 # the cols kernel's block: 256 threads, 4 rows in flight per thread, at most
 # 1024 rows of σ staged per block (csrc/split_matvec.cu)
@@ -110,6 +130,9 @@ def reset_launches() -> None:
             LAUNCH_SHAPES[k].clear()
         LAUNCHES_BY_DEVICE.clear()
         LAUNCHES_BY_ROW.clear()
+        GRAPHS.update(replays=0, captures=0, capture_seconds=0.0)
+        for k in GRAPH_LAUNCHES:
+            GRAPH_LAUNCHES[k] = 0
 
 
 def set_launch_row(row: Optional[int]) -> None:
@@ -120,17 +143,55 @@ def set_launch_row(row: Optional[int]) -> None:
 
 def _count(name: str, hi: torch.Tensor, g: int, device_index: int) -> None:
     """One launch of ``name`` on tables ``hi`` with g members per table, on
-    the card ``device_index``."""
+    the card ``device_index``; under capture, recorded for the replays."""
     shape = (hi.shape[0] if hi.dim() == 3 else 1, hi.shape[-2], hi.shape[-1],
              g)
+    rec = getattr(_recorded, "launches", None)
+    if rec is not None:
+        rec.append((name, shape, device_index))
+        return
+    _add([(name, shape, device_index)])
+
+
+def _add(launches) -> None:
+    """Count ``launches`` ((name, shape, device index) each) for this
+    thread's row."""
     row = getattr(_launch_row, "index", None)
     with _count_lock:
-        LAUNCHES[name] += 1
-        LAUNCH_SHAPES[name].add(shape)
-        for table, key in ((LAUNCHES_BY_DEVICE, device_index),
-                           (LAUNCHES_BY_ROW, row)):
-            if key is not None:
-                table.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += 1
+        for name, shape, device_index in launches:
+            LAUNCHES[name] += 1
+            LAUNCH_SHAPES[name].add(shape)
+            for table, key in ((LAUNCHES_BY_DEVICE, device_index),
+                               (LAUNCHES_BY_ROW, row)):
+                if key is not None:
+                    table.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the launches of this thread instead of counting them (a
+    capture): yields the list they are appended to."""
+    rec = []
+    _recorded.launches = rec
+    try:
+        yield rec
+    finally:
+        _recorded.launches = None
+
+
+def count_replay(launches) -> None:
+    """One replay of a graph whose capture recorded ``launches``."""
+    _add(launches)
+    with _count_lock:
+        GRAPHS["replays"] += 1
+        for name, _, _ in launches:
+            GRAPH_LAUNCHES[name] += 1
+
+
+def count_capture(seconds: float) -> None:
+    with _count_lock:
+        GRAPHS["captures"] += 1
+        GRAPHS["capture_seconds"] += seconds
 
 
 def _widen(hi, lo, lead: int) -> torch.Tensor:
@@ -330,6 +391,15 @@ def _workspace(device: torch.device, stream: int, n_partial: int,
                                   dtype=torch.int32, device=device)]
                 _WORKSPACES[key] = ws
     return ws
+
+
+def take_workspaces(device: torch.device, stream: int) -> list:
+    """Remove the cols workspace of (``device``, ``stream``) from
+    ``_WORKSPACES`` and return it (empty where there is none): a graph
+    captured on that stream keeps it for as long as the graph lives."""
+    with _ws_lock:
+        ws = _WORKSPACES.pop((device.index, stream), None)
+    return [] if ws is None else ws
 
 
 def _cuda_device(t: torch.Tensor) -> torch.device:

@@ -5,10 +5,14 @@ Port of the per-region path of ``longcallr_tpu/phasing/optimize.py``
 cross_optimize_by_block). The reference's per-read/per-SNP argmax loops are
 synchronous (all reads update from the current SNP state, then all SNPs
 from the new read state), so each half-step is one batched tensor call.
-The ≤21-iteration ascent is a Python loop that reads its continue flag once
-per trip; a batch of ascents (the enumeration path's configs) runs as one
-loop in which each member freezes when its own flag drops — the semantics
-of the JAX package's vmapped ``while_loop``.
+The ≤21-iteration ascent runs in chunks of ASCENT_CHUNK masked trips with
+one host read of its continue flag per chunk; a batch of ascents (the
+enumeration path's configs, a bucket's regions) runs as one loop in which
+each member freezes when its own flag drops — the semantics of the JAX
+package's vmapped ``while_loop``. The perturbation schedule keeps its state
+in tensors updated in place and runs as three steps that ``graphs.Runner``
+captures as CUDA graphs on the card and replays every round — the
+counterpart of the JAX package's one ``jax.jit`` program.
 
 Execution modes (the JAX package's knobs): LONGCALLR_FAST_KERNELS=0
 selects the reference-form ascent (the specification); the default
@@ -38,6 +42,7 @@ from ..config import CallerConfig
 
 from ..ops.candidates import CandidateSet
 from ..utils.device import phase_problem_device, resolve_device
+from . import graphs
 from . import kernels_fast as KF
 from . import rng as R
 from .fragments import FragmentMatrix
@@ -109,27 +114,54 @@ def _select(mask, new: PhaseState, old: PhaseState) -> PhaseState:
                       sel(new.eta, old.eta))
 
 
-def _ascend(st: PhaseState, sigma_step, snp_step) -> Tuple[PhaseState, int]:
-    """≤21 synchronous half-step pairs; each member of a batch stops when
-    its own continue flag (any σ flip or any δ/η change) drops. One host
-    sync per trip for the whole batch. Returns (state, trips taken — the
-    most any member needed)."""
-    active = None
-    trips = 0
-    for _ in range(21):
-        trips += 1
+# trips of an ascent between two host reads of its continue flag: the
+# ascents of the perturbation schedule mostly end after two trips (one that
+# changes the state and one that finds nothing to change)
+ASCENT_CHUNK = 2
+MAX_TRIPS = 21
+
+
+def _assign(dst: PhaseState, src: PhaseState) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _trips(st: PhaseState, active, count, sigma_step, snp_step,
+           n: int) -> torch.Tensor:
+    """``n`` masked trips of a batch of ascents, in place and without a host
+    sync: a trip updates the members of ``active`` (their continue flags,
+    bool of the batch shape) while ``count`` (int64 scalar) is below
+    MAX_TRIPS, sets each such member's flag to its continue rule (any σ
+    flip or any δ/η change) and counts itself where some member took it.
+    Returns the bool scalar "some member still ascends". A first trip with
+    every flag set is the JAX package's first ``while_loop`` trip; a trip
+    in which no member is left changes nothing, so chunks of trips give the
+    trips and states of the loop that stops at once."""
+    for _ in range(n):
+        live = active & (count < MAX_TRIPS)
         new_sigma, s_inc = sigma_step(st)
-        st1 = st._replace(sigma=new_sigma)
-        new_delta, new_eta, d_inc = snp_step(st1)
-        st1 = st1._replace(delta=new_delta, eta=new_eta)
-        go = s_inc | d_inc
-        if active is None:
-            st, active = st1, go
-        else:
-            st, active = _select(active, st1, st), active & go
-        if not bool(active.any()):
-            break
-    return st, trips
+        new_delta, new_eta, d_inc = snp_step(st._replace(sigma=new_sigma))
+        _assign(st, _select(live, PhaseState(new_sigma, new_delta, new_eta),
+                            st))
+        count.add_(live.any())
+        active.copy_(torch.where(live, s_inc | d_inc, active))
+    return active.any() & (count < MAX_TRIPS)
+
+
+def _ascend(st: PhaseState, sigma_step,
+            snp_step) -> Tuple[PhaseState, torch.Tensor]:
+    """≤21 synchronous half-step pairs; each member of a batch stops when
+    its own continue flag drops. The trips go in chunks of ASCENT_CHUNK with
+    one host read of the flag per chunk. Returns (state, trips taken — the
+    most any member needed — as an int64 scalar on the state's device)."""
+    dev = st.sigma.device
+    st = PhaseState(*(a.clone() for a in st))
+    active = torch.ones(st.sigma.shape[:-1], dtype=torch.bool, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    while bool(_trips(st, active, count, sigma_step, snp_step,
+                      ASCENT_CHUNK)):
+        pass
+    return st, count
 
 
 def _snp_decision(q1, q2, q3, q4, cov, st: PhaseState, site_mask, conserved,
@@ -161,26 +193,10 @@ def _cross_optimize_loop(ct, st: PhaseState, read_base, site_mask,
                          conserved, with_genotype: bool,
                          keep_conserved: bool):
     """Reference-form ascent (the specification path)."""
-    ct = as_tables(ct)
-
-    def sigma_step(st):
-        lp, lm, ncell = read_logliks(ct, st.delta, st.eta, site_mask)
-        upd = read_base & (st.sigma != 0) & (ncell > 0)
-        q, qn = sigma_q(lp, lm, st.sigma)
-        flip = upd & (qn > q + TIE_TOL)
-        return torch.where(flip, -st.sigma, st.sigma), flip.any(dim=-1)
-
-    def snp_step(st):
-        read_mask = read_base & (st.sigma != 0)
-        sums = snp_sums(ct, st.sigma, st.delta, read_mask, site_mask)
-        return _snp_decision(*snp_qs(*sums), sums[4], st, site_mask,
-                             conserved, with_genotype, keep_conserved)
-
+    sigma_step, snp_step, objective = _spec_steps(
+        ct, read_base, site_mask, conserved, with_genotype, keep_conserved)
     st, _ = _ascend(st, sigma_step, snp_step)
-    read_mask = read_base & (st.sigma != 0)
-    prob = overall_probability(ct, st.sigma, st.delta, st.eta, read_mask,
-                               site_mask)
-    return st, prob
+    return st, objective(st)
 
 
 def _fast_tables_for(ct, read_base, sigma, site_mask, split: bool):
@@ -216,17 +232,12 @@ def _cross_optimize_fast_loop(ct, st: PhaseState, read_base, site_mask,
     return st, prob
 
 
-def _cross_optimize_fast_loop_it(ct, st: PhaseState, read_base, site_mask,
-                                 conserved, with_genotype: bool,
-                                 keep_conserved: bool, split: bool, ft=None):
-    """Matvec-form ascent (kernels_fast): the reference's argmax/tie rules,
-    two matvecs per iteration. ``ft``: prebuilt tables (their active-read
-    mask must equal read_base & (st.sigma != 0)). With a leading region
-    axis on everything the whole bucket ascends in the same launches.
-    Returns (state, prob, trips)."""
-    rm0 = read_base & (st.sigma != 0)
-    if ft is None:
-        ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
+def _fast_steps(ft, read_base, sigma, site_mask, conserved,
+                with_genotype: bool, keep_conserved: bool, split: bool):
+    """The matvec-form ascent's half-steps and objective over the tables
+    ``ft`` (kernels_fast): (sigma_step, snp_step, objective), each a
+    function of a state."""
+    rm0 = read_base & (sigma != 0)
     if split:
         read_ll, snp_s, objective = (KF.fast_read_logliks32,
                                      KF.fast_snp_sums32,
@@ -247,8 +258,50 @@ def _cross_optimize_fast_loop_it(ct, st: PhaseState, read_base, site_mask,
         return _snp_decision(*snp_qs(*sums), sums[4], st, site_mask,
                              conserved, with_genotype, keep_conserved)
 
+    return sigma_step, snp_step, lambda st: objective(ft, *st)
+
+
+def _spec_steps(ct, read_base, site_mask, conserved, with_genotype: bool,
+                keep_conserved: bool):
+    """The reference-form ascent's half-steps and objective (the
+    specification path), as ``_fast_steps``."""
+    ct = as_tables(ct)
+
+    def sigma_step(st):
+        lp, lm, ncell = read_logliks(ct, st.delta, st.eta, site_mask)
+        upd = read_base & (st.sigma != 0) & (ncell > 0)
+        q, qn = sigma_q(lp, lm, st.sigma)
+        flip = upd & (qn > q + TIE_TOL)
+        return torch.where(flip, -st.sigma, st.sigma), flip.any(dim=-1)
+
+    def snp_step(st):
+        read_mask = read_base & (st.sigma != 0)
+        sums = snp_sums(ct, st.sigma, st.delta, read_mask, site_mask)
+        return _snp_decision(*snp_qs(*sums), sums[4], st, site_mask,
+                             conserved, with_genotype, keep_conserved)
+
+    def objective(st):
+        return overall_probability(ct, st.sigma, st.delta, st.eta,
+                                   read_base & (st.sigma != 0), site_mask)
+
+    return sigma_step, snp_step, objective
+
+
+def _cross_optimize_fast_loop_it(ct, st: PhaseState, read_base, site_mask,
+                                 conserved, with_genotype: bool,
+                                 keep_conserved: bool, split: bool, ft=None):
+    """Matvec-form ascent (kernels_fast): the reference's argmax/tie rules,
+    two matvecs per iteration. ``ft``: prebuilt tables (their active-read
+    mask must equal read_base & (st.sigma != 0)). With a leading region
+    axis on everything the whole bucket ascends in the same launches.
+    Returns (state, prob, trips as an int64 scalar)."""
+    if ft is None:
+        ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
+    sigma_step, snp_step, objective = _fast_steps(
+        ft, read_base, st.sigma, site_mask, conserved, with_genotype,
+        keep_conserved, split)
     st, trips = _ascend(st, sigma_step, snp_step)
-    return st, objective(ft, st.sigma, st.delta, st.eta), trips
+    return st, objective(st), trips
 
 
 def cross_optimize_fast(ct, st: PhaseState, read_base, site_mask, conserved,
@@ -348,10 +401,90 @@ def _overall_probability(ct, sigma, delta, eta, read_base, site_mask,
     return overall_probability(ct, sigma, delta, eta, rm, site_mask)
 
 
-def _keep_best(b_st: PhaseState, b_p, st_new: PhaseState, p_new):
-    """Tie-quantized keep-best on the device (no host sync)."""
-    better = p_new > b_p + TIE_TOL
-    return _select(better, st_new, b_st), torch.where(better, p_new, b_p)
+def _run_schedule(steps, b_st: PhaseState, b_p, read_base, rg_all, fl_all,
+                  n_loop: int, rounds=None, capture: bool = True):
+    """The perturbation schedule's loop (phase.rs:1198-1233) for one region
+    or a bucket: ``n_loop`` rounds of {δ resets → ascent → keep-best → σ
+    flips → ascent → keep-best}. ``steps``: the ascent's (sigma_step,
+    snp_step, objective) (``_fast_steps``, ``_spec_steps``); ``rg_all`` /
+    ``fl_all``: every round's draws, [R, ..., I] / [R, ..., K], round
+    first; ``rounds`` (bucket only): each member's round count on the
+    device — a member past its count keeps its state.
+
+    The state lives in tensors that every step updates in place, and the
+    round index ``t`` lives on the device, so one capture of each of three
+    steps serves every round (``graphs.Runner``; ``capture`` false: eager,
+    the spec path): "open" (the previous round's second keep-best and
+    t + 1, where there is one, then δ resets and ASCENT_CHUNK trips of the
+    first ascent), "flip" (its keep-best, σ flips, ASCENT_CHUNK trips of
+    the second) and "more" (ASCENT_CHUNK more trips, while the flag says an
+    ascent is unfinished): two replays and two flag reads a round where no
+    ascent overruns its chunk. The last round's second keep-best runs
+    once, eagerly. Returns (best state, best prob, the trips of each
+    ascent as an int64 [n_loop, 2] on the device)."""
+    sigma_step, snp_step, objective = steps
+    dev = b_st.sigma.device
+    best = PhaseState(*(a.clone() for a in b_st))
+    prob = b_p.clone()
+    cur = PhaseState(*(a.clone() for a in b_st))
+    active = torch.ones(b_st.sigma.shape[:-1], dtype=torch.bool, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    t = torch.zeros(1, dtype=torch.int64, device=dev)
+    # a round whose second ascent awaits its keep-best (none before round 0)
+    pending = torch.zeros((), dtype=torch.bool, device=dev)
+    trips = torch.zeros((max(n_loop, 1), 2), dtype=torch.int64, device=dev)
+    more = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def start(sigma, delta):
+        _assign(cur, PhaseState(sigma, delta, best.eta))
+        active.fill_(True)
+        count.zero_()
+
+    def climb():
+        more.copy_(_trips(cur, active, count, sigma_step, snp_step,
+                          ASCENT_CHUNK))
+
+    def keep(k: int, valid=None):
+        p_new = objective(cur)
+        better = p_new > prob + TIE_TOL
+        if rounds is not None:
+            better = better & (rounds > t)
+        if valid is not None:
+            better = better & valid
+        _assign(best, _select(better, cur, best))
+        prob.copy_(torch.where(better, p_new, prob))
+        trips.select(1, k).index_copy_(0, t, count.reshape(1))
+
+    def close_round(valid=None):
+        keep(1, valid)
+        t.add_(pending)
+
+    def open_round():
+        close_round(pending)
+        pending.fill_(True)
+        lowv = (t % 2).to(f64) * 2.0 - 1.0         # -1 on even rounds
+        rg = rg_all.index_select(0, t).squeeze(0)
+        start(best.sigma, torch.where(rg < 0.1, lowv,
+                                      torch.where(rg >= 0.9, -lowv,
+                                                  best.delta)))
+        climb()
+
+    def flip_reads():
+        keep(0)
+        fl = ((fl_all.index_select(0, t).squeeze(0) < 0.1) & read_base
+              & (best.sigma != 0))
+        start(torch.where(fl, -best.sigma, best.sigma), best.delta)
+        climb()
+
+    run = graphs.Runner(dev, capture)
+    for _ in range(int(n_loop)):
+        for name, step in (("open", open_round), ("flip", flip_reads)):
+            run(name, step)
+            while run.flag(more):
+                run("more", climb)
+    if n_loop:
+        close_round()
+    return best, prob, trips[:n_loop]
 
 
 def _perturbation_impl(ct, st: PhaseState, best_st: PhaseState, best_prob,
@@ -365,32 +498,18 @@ def _perturbation_impl(ct, st: PhaseState, best_st: PhaseState, best_prob,
     dev = st.sigma.device
     if USE_FAST_KERNELS:
         ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
-        ascend = lambda st0: _cross_optimize_fast_loop_it(
-            None, st0, read_base, site_mask, conserved, False, False, split,
-            ft=ft)
+        steps = _fast_steps(ft, read_base, st.sigma, site_mask, conserved,
+                            False, False, split)
     else:
-        ct = as_tables(ct)
-        ascend = lambda st0: _cross_optimize_loop(
-            ct, st0, read_base, site_mask, conserved, False, False) + (0,)
+        steps = _spec_steps(ct, read_base, site_mask, conserved, False,
+                            False)
     rg_np, fl_np = R.predraw_rounds(key, K, I)
-    rg_all = torch.as_tensor(rg_np, device=dev)
-    fl_all = torch.as_tensor(fl_np, device=dev)
-    b_st = best_st
-    b_p = torch.as_tensor(best_prob, dtype=f64, device=dev)
-    iters = 0
-    for t in range(int(n_rounds)):
-        lowv = 1.0 if t % 2 == 1 else -1.0
-        rg = rg_all[t]
-        delta = torch.where(rg < 0.1, lowv,
-                            torch.where(rg >= 0.9, -lowv, b_st.delta))
-        st1, prob1, it1 = ascend(b_st._replace(delta=delta))
-        b_st, b_p = _keep_best(b_st, b_p, st1, prob1)
-        fl = (fl_all[t] < 0.1) & read_base & (b_st.sigma != 0)
-        sigma = torch.where(fl, -b_st.sigma, b_st.sigma)
-        st2, prob2, it2 = ascend(b_st._replace(sigma=sigma))
-        b_st, b_p = _keep_best(b_st, b_p, st2, prob2)
-        iters += it1 + it2
-    return (b_st, b_p, iters) if with_iters else (b_st, b_p)
+    b_st, b_p, trips = _run_schedule(
+        steps, best_st, torch.as_tensor(best_prob, dtype=f64, device=dev),
+        read_base, torch.as_tensor(rg_np, device=dev),
+        torch.as_tensor(fl_np, device=dev), int(n_rounds),
+        capture=USE_FAST_KERNELS)
+    return (b_st, b_p, int(trips.sum())) if with_iters else (b_st, b_p)
 
 
 def perturbation_phase(ct, st: PhaseState, best_st: PhaseState, best_prob,
