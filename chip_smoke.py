@@ -43,7 +43,20 @@ package) and fails on the first check that does not hold:
                float32 rate outside the tensor cores). The share of that
                bound is stated for the cold time; for the warm time only
                where those bytes exceed the 50 MB L2 (else the warm time is
-               a time "in L2" and has no share of a device-memory bound);
+               a time "in L2" and has no share of a device-memory bound).
+               The round draws of the perturbation schedule
+               (phasing/cuda_draws.py, csrc/round_draws.cu) against their
+               plain version bit for bit (torch.equal, and two launches
+               equal), and against rng.py's host draws for one key, at one
+               deep region (keys [2], 129 rounds, I 512, K 4096), a default
+               wave (2 keys), the deep bucket (4), a stream wave (5 keys, 65
+               rounds, 256, 2048) and a bucket of mixed round counts (4 keys,
+               77 of its 129 rounds); timed there: host time of a wrapper
+               call, one call between CUDA events, the plain version, and
+               the host path it replaces (rng.predraw_rounds per region, the
+               copy to the card); device time warm and cold beside the
+               bound, the larger of bytes / 3.35 TB/s and int32 operations /
+               16.7 T/s (DRAW_OPS a value);
   3. tables  — the split-table build on a bucket of four deep regions
                against the build of each region alone;
   4. goldens — the four simulated preset workloads of the JAX package's
@@ -52,11 +65,12 @@ package) and fails on the first check that does not hold:
                HP/PS tags byte-equal to tests/golden/preset_*;
   5. deep    — the deep workload (4 loci x 80 kb, 150x, 3 kb reads) through
                the CLI's main() with --no-batched (the per-region loop);
-               launch counts of both kernels are reset just before and
-               read just after, and must be > 0;
+               launch counts of both kernels and of the round draws are
+               reset just before and read just after, and must be > 0;
   6. batched — (a) the same input with no --batched flag: it must take the
                batched pipeline, launch both kernels, and write the VCF
-               bytes and phased-BAM payload of the per-region run; the
+               bytes and phased-BAM payload of the per-region run, and
+               launch the round draws; the
                stage counters and the bucket census are printed; (d) the
                genome workload (3 contigs, 8 loci, one 300x locus) batched
                and --no-batched: equal; (e) the deep input cut into >= 3
@@ -83,7 +97,8 @@ package) and fails on the first check that does not hold:
                loci of 40 kb at 120x, SNP spacing 200: 104,000 reads of 3 kb)
                through the CLI's main() with --stream and with --no-stream
                (resident, batched), 8 threads each: VCF bytes and phased-BAM
-               payload equal, both kernels launched on both, only at shapes
+               payload equal, both kernels and the round draws launched on
+               both, the matvec kernels only at shapes
                that phase 2 checked ((5, 2048, 256) and (3, 2048, 256)
                tables, one member each), every bucket placed on the card
                at the default thresholds; wall, reads/s, the stream's
@@ -123,7 +138,7 @@ package) and fails on the first check that does not hold:
                launched (f64 matmul); walls beside phase_region's;
  15. stats   — perturbation_phase_stats on one deep region in split mode:
                state and prob equal perturbation_phase's, ascent trips > 0,
-               both kernels launched;
+               both kernels and the round draws launched;
  16. profile — the genome workload with --profile-dir: the torch.profiler
                trace holds both hand kernels' device kernels, and the bytes
                equal a run without the flag;
@@ -145,7 +160,10 @@ package) and fails on the first check that does not hold:
                repeats one card is slower than the bucket (PERF.md,
                Findings): (c) and (d) are cut to stay in the script's time.
                Every row launches both kernels (cuda_kernels.
-               LAUNCHES_BY_ROW), only at shapes phase 2 checked;
+               LAUNCHES_BY_ROW), only at shapes phase 2 checked; the round
+               draws are launched on every leg but (b), each launch counted
+               for a row of the mesh (cuda_draws.DRAW_LAUNCHES_BY_ROW), on
+               every row in (d);
                region_phase, phase_fused and walls are printed beside
                phases 6 and 8;
  19. graphs  — (run right after phase 8) the perturbation schedule as CUDA
@@ -156,7 +174,8 @@ package) and fails on the first check that does not hold:
                the CLI at the default waves and as one wave of 4, one deep
                region through phase_region and the stream input resident
                with 8 threads: bytes, sorted HP/PS tags and the launch
-               census equal, replays only with graphs on and both kernels
+               census equal (the round draws' too), replays only with
+               graphs on and both kernels
                launched inside graphs there; replays, captures, capture
                seconds, region_phase, phase_fused, wall and the device peak
                of each run, and the device's idle share (torch.profiler,
@@ -187,8 +206,14 @@ the workers of phase 12, ``launches_stats`` phase 15, ``launches_graphs_*``
 the runs with graphs of phase 19, ``launches_mesh``
 (a)'s run on the (2, 1) mesh and ``launches_mesh_*`` the other runs of
 phase 18 (``_cards``: over every card); each timed shape lists
-under ``launched_by`` the runs that launched the kernel there), the card's
-name and power limit (nvidia-smi), and last the result line.
+under ``launched_by`` the runs that launched the kernel there; the entry of
+``round_draws`` has its times at the default wave (2 keys, 129 rounds),
+its launches on the default batched deep run, ``launches_<run>`` for every
+other run that counted them, its times at every shape of phase 2 under
+``shapes`` and, under ``checked_at_launched_shapes``, every shape the runs
+launched it at, each held against the plain version once more after the
+runs), the card's name and power limit (nvidia-smi), and last the result
+line.
 """
 
 from __future__ import annotations
@@ -632,6 +657,178 @@ def _threads_check(CK, rng, dev) -> dict:
             "workspaces": len(CK._WORKSPACES)}
 
 
+# the round draws of the perturbation schedule (phasing/cuda_draws.py),
+# checked and timed at the main path's shapes: (keys, rounds, I, K) with
+# keys None for the one-region form (keys [2]); the rounds are the JAX
+# package's I // 4 + 1, and the mixed bucket's loop stops short of them
+DRAW_SHAPES = {"deep_region": (None, 129, 512, 4096),
+               "deep_wave": (2, 129, 512, 4096),
+               "deep_bucket": (4, 129, 512, 4096),
+               "stream_wave": (5, 65, 256, 2048),
+               "mixed_rounds": (4, 77, 512, 4096)}
+# int32 operations a second outside the tensor cores: 64 INT32 lanes per
+# SM (the Hopper white paper), 132 SMs, 1.98 GHz (the clock of the data
+# sheet's 67 TFLOP/s float32 on 128 lanes)
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# 32-bit operations of one threefry2x32 (2 key adds, then 5 groups of 4
+# add-rotate-xor steps and 3 adds of key injection), and of one draw: its
+# hash and 4 to make the double
+THREEFRY_OPS = 2 + 5 * (4 * 3 + 3)
+DRAW_OPS = THREEFRY_OPS + 4
+# round_draws by run: {"launches", "shapes", "by_row"}, read just after the
+# run (cuda_draws.DRAW_LAUNCHES, cleared with cuda_kernels.reset_launches)
+DRAW_RUNS: dict = {}
+
+
+def _draws_read(run: str, must: bool = False) -> int:
+    """Record the round draws of the run just made under ``run``; with
+    ``must``, fail if it launched none."""
+    from longcallr_tpu_torch.phasing import cuda_draws as CD
+
+    n = CD.DRAW_LAUNCHES["round_draws"]
+    DRAW_RUNS[run] = {"launches": n,
+                      "shapes": sorted(list(s) for s in CD.DRAW_LAUNCH_SHAPES),
+                      "by_row": dict(CD.DRAW_LAUNCHES_BY_ROW)}
+    if must and n <= 0:
+        raise AssertionError(f"{run}: round_draws was not launched")
+    return n
+
+
+def _draw_keys(B, seed: int = 20261017):
+    """Key words of B regions (the edge seeds first), int64 [B, 2] on the
+    host; B None: one region's [2]."""
+    from longcallr_tpu_torch.phasing import cuda_draws as CD
+    from longcallr_tpu_torch.phasing import rng as R
+
+    g = np.random.default_rng(seed)
+    n = 1 if B is None else B
+    seeds = [0, 2 ** 32 - 1, 2 ** 63 - 1] + [
+        int(v) for v in g.integers(0, 2 ** 63 - 1, size=n, dtype=np.int64)]
+    keys = [R.prng_key(s) for s in seeds[:n]]
+    return CD.key_words(keys[0] if B is None else keys, "cpu")
+
+
+def _draws_equal(what: str, kw, n_rounds: int, I: int, K: int) -> float:
+    """round_draws against round_draws_plain on the card (and two launches
+    against each other), bit for bit. Returns the largest difference."""
+    from longcallr_tpu_torch.phasing import cuda_draws as CD
+
+    got, again = CD.round_draws(kw, n_rounds, I, K), \
+        CD.round_draws(kw, n_rounds, I, K)
+    want = CD.round_draws_plain(kw, n_rounds, I, K)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        if g.shape != w.shape or not (torch.equal(g, w) and torch.equal(g, a)):
+            raise AssertionError(f"round_draws {what}: the kernel differs "
+                                 f"from the plain version or from itself")
+    return max(float((g - w).abs().max()) if g.numel() else 0.0
+               for g, w in zip(got, want))
+
+
+def _draws_bound(B, n_rounds: int, I: int, K: int):
+    """(bound ms, bound by, bytes, int32 operations) of one call: the keys
+    read once, the draws written once; DRAW_OPS a value, and the key
+    derivation (3 hashes) per (region, round)."""
+    b = 1 if B is None else B
+    values = n_rounds * b * (I + K)
+    nbytes = values * 8 + b * 16
+    ops = values * DRAW_OPS + n_rounds * b * 3 * THREEFRY_OPS
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def _host_path(kw, n_rounds: int, I: int, K: int, dev):
+    """What the card's draws replace: rng.predraw_rounds per region on the
+    host, the rounds the loop runs stacked round first, copied to the
+    card."""
+    from longcallr_tpu_torch.phasing import rng as R
+
+    keys = kw.numpy().reshape(-1, 2).astype(np.uint32)
+
+    def run():
+        d = [R.predraw_rounds(k, K, I) for k in keys]
+        rg = torch.as_tensor(np.stack([x[0][:n_rounds] for x in d], axis=1),
+                             device=dev)
+        fl = torch.as_tensor(np.stack([x[1][:n_rounds] for x in d], axis=1),
+                             device=dev)
+        torch.cuda.synchronize()
+        return rg, fl
+    return run
+
+
+def _draws_host_phase(dev) -> dict:
+    """round_draws at DRAW_SHAPES: the kernel against its plain version and
+    the host reference (rng.py, one key of each shape), bit for bit; the
+    host times of a wrapper call, of a call between CUDA events, of the
+    plain version, and of the host path it replaces. Run before the
+    profiler first runs in the process. Returns the rows by shape label."""
+    from longcallr_tpu_torch.phasing import cuda_draws as CD
+    from longcallr_tpu_torch.phasing import rng as R
+
+    rows = {}
+    for label, (B, n_rounds, I, K) in DRAW_SHAPES.items():
+        kw = _draw_keys(B)
+        kd = kw.to(dev)
+        err = _draws_equal(label, kd, n_rounds, I, K)
+        rg, fl = CD.round_draws(kd, n_rounds, I, K)
+        ref = R.predraw_rounds(kw.numpy().reshape(-1, 2)[0].astype(np.uint32),
+                               K, I)
+        first = (lambda a: a) if B is None else (lambda a: a[:, 0])
+        if not (np.array_equal(first(rg).cpu().numpy(), ref[0][:n_rounds])
+                and np.array_equal(first(fl).cpu().numpy(),
+                                   ref[1][:n_rounds])):
+            raise AssertionError(f"round_draws {label}: differs from rng.py")
+        host = _host_path(kw, n_rounds, I, K, dev)
+        h = host()
+        if not (torch.equal(h[0].reshape(rg.shape), rg)
+                and torch.equal(h[1].reshape(fl.shape), fl)):
+            raise AssertionError(f"round_draws {label}: the host path "
+                                 f"differs")
+        call = lambda: CD.round_draws(kd, n_rounds, I, K)
+        rows[label] = {
+            "keys": B, "rounds": n_rounds, "I": I, "K": K,
+            "max_abs_err": err, "bit_equal": True,
+            "wrapper_ms": _host_ms(call), "call_ms": _median_ms(call),
+            "plain_call_ms": _median_ms(
+                lambda: CD.round_draws_plain(kd, n_rounds, I, K), n=10),
+            "host_path_ms": _median_ms(host, n=5)}
+    return rows
+
+
+def _draws_device_phase(dev, rows: dict, flush) -> None:
+    """Device times of round_draws at DRAW_SHAPES beside its bound: warm,
+    cold (the L2 flushed before each call), and the plain version's."""
+    from longcallr_tpu_torch.phasing import cuda_draws as CD
+
+    for label, (B, n_rounds, I, K) in DRAW_SHAPES.items():
+        kd = _draw_keys(B).to(dev)
+        k = lambda: CD.round_draws(kd, n_rounds, I, K)
+        bound_ms, bound_by, nbytes, ops = _draws_bound(B, n_rounds, I, K)
+        t = {"ms": _device_ms(k), "cold_ms": _device_ms(k, flush),
+             "plain_ms": _device_ms(
+                 lambda: CD.round_draws_plain(kd, n_rounds, I, K), n=5),
+             "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+             "bound_bytes": nbytes, "bound_int32_operations": ops}
+        t["share_of_bound"] = bound_ms / t["ms"]
+        t["share_of_bound_cold"] = bound_ms / t["cold_ms"]
+        rows[label].update(t)
+
+
+def _draws_at_launched_shapes(dev) -> list:
+    """round_draws against its plain version at every shape the runs of
+    DRAW_RUNS launched it at (after their counts were read). Returns the
+    shapes."""
+    shapes = sorted({tuple(s) for r in DRAW_RUNS.values()
+                     for s in r["shapes"]})
+    for B, n_rounds, I, K in shapes:
+        _draws_equal(f"launched at {(B, n_rounds, I, K)}",
+                     _draw_keys(B, seed=B * 7919 + n_rounds).to(dev),
+                     n_rounds, I, K)
+    return [list(s) for s in shapes]
+
+
 def phase_kernels(card: str, dev):
     """Kernel vs plain at the listed shapes, the σ and alignment cases of
     matvec_cols, the threaded calls, and the timings at the two main-path
@@ -645,6 +842,7 @@ def phase_kernels(card: str, dev):
     stats = {n: {"max_abs_err": 0.0, "max_rel_err": 0.0}
              for n in KERNEL_NAMES}
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    draws = _draws_host_phase(dev)
     rows, timed = [], []
     for shape in CHECKED_SHAPES:
         B, K, I, shared = shape[:4]
@@ -689,6 +887,8 @@ def phase_kernels(card: str, dev):
         rows.append(row)
     for name, res, hi, lo, op in timed:
         res.update(_time_device(name, *kerns[name], hi, lo, op, flush))
+    _draws_device_phase(dev, draws, flush)
+    stats["round_draws"] = draws
 
     # matvec_cols: σ patterns and the scalar path at the deep size
     kern, plain = kerns["matvec_cols"]
@@ -723,7 +923,7 @@ def phase_kernels(card: str, dev):
 
     threaded = _threads_check(CK, rng, dev)
     _emit("kernels", card, rel_tol=REL_TOL, device_ms_by=DEVICE_TIMER["by"],
-          shapes=rows, cols_cases=cases, threaded=threaded)
+          shapes=rows, cols_cases=cases, threaded=threaded, draws=draws)
     return stats
 
 
@@ -854,6 +1054,7 @@ def phase_deep(card: str, tmp: str):
     rc = cli.main(argv)
     wall = time.monotonic() - t0
     launches = dict(CK.LAUNCHES)
+    draws = _draws_read("per_region", must=True)
     out = cli.LAST_RUN
     if rc != 0:
         raise AssertionError(f"cli.main returned {rc}")
@@ -872,8 +1073,8 @@ def phase_deep(card: str, tmp: str):
           generate_seconds=gen_s, wall_seconds=wall,
           reads_per_second=params["n_reads"] / wall,
           stage_seconds=out.stage_seconds, launches=launches,
-          launch_shapes=shapes, split_regions_kept=out.n_split_kept,
-          f64_reruns=out.n_f64_reruns)
+          launch_shapes=shapes, draw_launches=draws,
+          split_regions_kept=out.n_split_kept, f64_reruns=out.n_f64_reruns)
     return bam, fa, out, (launches, shapes), params["n_reads"]
 
 
@@ -894,8 +1095,9 @@ def _environ(env):
 
 def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
     """One run through the CLI's main() in this process, the launch counts
-    set to 0 just before and read just after. Returns (prefix,
-    CallerOutputs, launches, wall seconds)."""
+    set to 0 just before and read just after (the round draws' into
+    DRAW_RUNS[label]). Returns (prefix, CallerOutputs, launches, wall
+    seconds)."""
     from longcallr_tpu_torch import cli
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
 
@@ -908,6 +1110,7 @@ def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
         rc = cli.main(argv)
         wall = time.monotonic() - t0
         launches = dict(CK.LAUNCHES)
+        _draws_read(label)
     if rc != 0:
         raise AssertionError(f"{label}: cli.main returned {rc}")
     return prefix, cli.LAST_RUN, launches, wall
@@ -1070,6 +1273,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"batched main path")
+    _draws_read("deep_batched", must=True)
     want = _payloads(per_region_out.vcf_path[:-len(".vcf")])
     got = _payloads(prefix)
     _must_equal("(b) batched vs --no-batched, deep input", got, want)
@@ -1077,6 +1281,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         "regions": out.n_regions, "records": out.n_records,
         "wall_seconds": wall, "reads_per_second": n_reads / wall,
         "launches": launches, "launch_shapes": shapes, "census": census,
+        "draws": DRAW_RUNS["deep_batched"],
         "placed": _all_on_card("(a) deep input, batched", out),
         "stage_seconds": stage, "split_regions_kept": out.n_split_kept,
         "f64_reruns": out.n_f64_reruns},
@@ -1295,6 +1500,7 @@ def phase_stream(card: str, tmp: str, notes: dict):
             if n <= 0:
                 raise AssertionError(f"stream input, {flag}: kernel {name} "
                                      f"was not launched")
+        _draws_read(f"stream_{label}", must=True)
         if out.n_records <= 0 or out.n_regions != 5 * STREAM_LOCI:
             raise AssertionError(f"stream input, {flag}: {out.n_regions} "
                                  f"regions, {out.n_records} records")
@@ -1307,7 +1513,7 @@ def phase_stream(card: str, tmp: str, notes: dict):
             "wall_seconds": wall, "reads_per_second": params["n_reads"] / wall,
             "regions": out.n_regions, "records": out.n_records,
             "launches": launches, "launch_shapes": shapes,
-            "census": _census(st),
+            "draws": DRAW_RUNS[f"stream_{label}"], "census": _census(st),
             "placed": _all_on_card(f"stream input, {flag}", out),
             "stage_seconds": st, "split_regions_kept": out.n_split_kept,
             "f64_reruns": out.n_f64_reruns,
@@ -1876,6 +2082,7 @@ def phase_stats(card: str, dev, deep_input) -> dict:
         walls[name] = time.monotonic() - t0
     launches = dict(CK.LAUNCHES)
     shapes = _launched_shapes("stats, one deep region")
+    draws = _draws_read("stats", must=True)
     (b1, p1), (b2, p2, iters) = res["plain_schedule"], res["stats"]
     if float(p1) != float(p2) or not all(torch.equal(a, b)
                                          for a, b in zip(b1, b2)):
@@ -1887,7 +2094,8 @@ def phase_stats(card: str, dev, deep_input) -> dict:
     moved = 2 * iters * K * I_pad * 8
     _emit("stats", card, region=str(reg), K=K, I=I_pad, rounds=n_rounds,
           ascent_trips=iters, wall_seconds=walls, launches=launches,
-          launch_shapes=shapes, split_dp_bytes_moved=moved,
+          launch_shapes=shapes, draw_launches=draws,
+          split_dp_bytes_moved=moved,
           split_dp_bytes_per_second=moved / walls["stats"],
           equal_to_perturbation_phase=True)
     return launches, shapes
@@ -1940,7 +2148,8 @@ def _mesh_run(tmp: str, label: str, bam: str, fa: str, dev, mesh, extra=(),
               env=None, contigs=None):
     """caller.run(batched=True, mesh=mesh, contigs=contigs) with the
     configuration the CLI builds for the same arguments, the launch counts
-    set to 0 just before and read just after. Returns (prefix,
+    set to 0 just before and read just after (the round draws' into
+    DRAW_RUNS[label]). Returns (prefix,
     CallerOutputs, launches, launches by mesh row, wall seconds)."""
     from longcallr_tpu_torch import cli
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
@@ -1956,6 +2165,7 @@ def _mesh_run(tmp: str, label: str, bam: str, fa: str, dev, mesh, extra=(),
                   device=dev, mesh=mesh)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+        _draws_read(label)
     return (prefix, out, dict(CK.LAUNCHES),
             {r: dict(v) for r, v in CK.LAUNCHES_BY_ROW.items()}, wall)
 
@@ -2009,6 +2219,20 @@ def _rows_launched(what: str, mesh, by_row: dict, bucket: int) -> dict:
         raise AssertionError(f"{what}: launches by row {by_row}, expected "
                              f"both kernels in at least {want} rows of "
                              f"{mesh.shape}")
+    return {str(r): by_row[r] for r in sorted(by_row)}
+
+
+def _rows_drew(what: str, mesh, rows_needed: int = 0) -> dict:
+    """The round draws of the mesh run ``what`` (DRAW_RUNS): launched,
+    every launch counted for a row of ``mesh``, and in at least
+    ``rows_needed`` rows. Returns the counts by row."""
+    d = DRAW_RUNS[what]
+    by_row = d["by_row"]
+    if d["launches"] <= 0 or sum(by_row.values()) != d["launches"] or \
+            not set(by_row) <= set(range(mesh.shape[0])) or \
+            len(by_row) < rows_needed:
+        raise AssertionError(f"{what}: round_draws {d['launches']} "
+                             f"launches, by row {by_row}, on {mesh.shape}")
     return {str(r): by_row[r] for r in sorted(by_row)}
 
 
@@ -2094,6 +2318,7 @@ def _mesh_stats(dev, bucket, mesh) -> dict:
         counts[label] = (dict(CK.LAUNCHES),
                          _launched_shapes(f"(d) stats, {label}"),
                          {r: dict(v) for r, v in CK.LAUNCHES_BY_ROW.items()})
+        _draws_read(f"mesh_stats_{label}", must=True)
     (a, b) = res["bucket"], res["mesh"]
     if not all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])):
         raise AssertionError("(d) stats: the mesh's states differ")
@@ -2107,6 +2332,7 @@ def _mesh_stats(dev, bucket, mesh) -> dict:
             "launches_mesh": counts["mesh"][0],
             "launches_by_row": _rows_launched("(d) stats", mesh,
                                               counts["mesh"][2], 4),
+            "draws_by_row": _rows_drew("mesh_stats_mesh", mesh, 4),
             "launch_shapes_mesh": counts["mesh"][1], "equal": True}, \
         (counts["mesh"][0], counts["mesh"][1])
 
@@ -2164,8 +2390,12 @@ def phase_mesh(card: str, dev, tmp: str, deep_input, stream_input,
             if census[kind] < 1:
                 raise AssertionError(f"{name}: no bucket on the mesh: "
                                      f"{census}")
+            if label != "mesh_enum":        # enumeration draws nothing
+                drew = _rows_drew(name, mesh)
             res[name] = {"mesh": list(mesh.shape), "census": census,
                          "launches": launches,
+                         "draws_by_row": (None if label == "mesh_enum"
+                                          else drew),
                          "launches_by_row": _rows_launched(name, mesh, by_row,
                                                            smallest),
                          "launch_shapes": shapes, **_phase_times(wall, out),
@@ -2334,9 +2564,12 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
                 _payloads(b["prefix"]))
     if _records_and_tags(a["prefix"]) != _records_and_tags(b["prefix"]):
         raise AssertionError(f"graphs {label}: records or tags differ")
-    if (a["launches"], a["shapes"]) != (b["launches"], b["shapes"]):
+    if (a["launches"], a["shapes"]) != (b["launches"], b["shapes"]) or \
+            DRAW_RUNS[f"graphs_{label}_off"] != DRAW_RUNS[f"graphs_{label}_on"]:
         raise AssertionError(f"graphs {label}: launch census off "
-                             f"{a['launches']} vs on {b['launches']}")
+                             f"{a['launches']} vs on {b['launches']}, draws "
+                             f"{DRAW_RUNS[f'graphs_{label}_off']} vs "
+                             f"{DRAW_RUNS[f'graphs_{label}_on']}")
     if a["graphs"]["replays"] or not b["graphs"]["replays"] or not all(
             b["graph_launches"][n] > 0 and b["launches"][n] > 0
             for n in KERNEL_NAMES):
@@ -2480,6 +2713,7 @@ def main() -> int:
         phase_giant(card, dev, stream_input)
         runs["stats"] = phase_stats(card, dev, (bam, fa))
         phase_profile(card, tmp)
+    draws_launched_at = _draws_at_launched_shapes(dev)
     phase_imports(card)
     runs["per_region"] = per_region
     replaces = {
@@ -2513,6 +2747,24 @@ def main() -> int:
                         **keep(stats[n][label]))
             for label in TIMED.values()}
         kernels.append(k)
+    # the round draws: the default batched run of the deep input launches
+    # them once a wave of two regions; timed at the JAX package's 129
+    # rounds, checked also at every shape the runs launched
+    d = stats["round_draws"]
+    k = {"name": "round_draws", "route": "cuda",
+         "source": "longcallr_tpu_torch/csrc/round_draws.cu",
+         "replaces": "longcallr_tpu/parallel/mesh.py:224",
+         "launches": DRAW_RUNS["deep_batched"]["launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in d.values()),
+         "device_ms_by": DEVICE_TIMER["by"],
+         "shape": list(DRAW_SHAPES["deep_wave"])}
+    k.update({f: v for f, v in d["deep_wave"].items()
+              if f.endswith("ms") or f.startswith(("bound", "share"))})
+    k.update({f"launches_{run}": r["launches"] for run, r in DRAW_RUNS.items()
+              if run != "deep_batched"})
+    k["shapes"] = d
+    k["checked_at_launched_shapes"] = draws_launched_at
+    kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,9 @@ Each DIR holds a checkout of the repository (``.`` for this one; unpack
 another commit with ``git archive`` into a git-ignored directory). The deep
 workload (4 loci x 80 kb, 150x, 3 kb reads) is generated once. Each checkout
 first builds its kernels and host decoders, then the checkouts run in the
-order A, B, B, A, each time the per-region loop (``--no-batched``) and the
-default batched pipeline, every run a fresh process with the checkout as its
+order A, B, B, A, each time the per-region loop (``--no-batched``), the
+default batched pipeline and the batched pipeline with the four regions in
+one wave (``MODES``), every run a fresh process with the checkout as its
 working directory: the wall of ``cli.main`` (process start and builds not
 counted) and its stage seconds. One JSON line per run; the card's name and
 power limit on the last line. Hosts differ between machines by up to 2x:
@@ -35,6 +36,12 @@ wall = time.monotonic() - t0
 print("AB_JSON " + json.dumps({"rc": rc, "wall_seconds": wall,
                                "stage_seconds": cli.LAST_RUN.stage_seconds}))
 """
+# (label, CLI arguments, environment): the per-region loop, the default
+# batched pipeline (two waves of two regions) and the four regions as one
+# wave
+MODES = (("per_region", ["--no-batched"], {}),
+         ("batched", [], {}),
+         ("one_wave", [], {"LONGCALLR_WAVE_CELLS": str(1 << 40)}))
 _BUILD = ("from longcallr_tpu_torch import _build, native; _build.load(); "
           "assert native.available()")
 
@@ -60,14 +67,14 @@ def main() -> int:
             subprocess.run([sys.executable, "-c", _BUILD], cwd=d, check=True)
         n = 0
         for label, d in (trees[0], trees[1], trees[1], trees[0]):
-            for mode, extra in (("per_region", ["--no-batched"]),
-                                ("batched", [])):
+            for mode, extra, env in MODES:
                 n += 1
                 res = subprocess.run(
                     [sys.executable, "-c", _RUN, "-b", bam, "-f", fa, "-o",
                      os.path.join(tmp, f"out{n}"), "-p", "hifi-masseq",
                      "--platform", "cuda", *extra],
-                    cwd=d, capture_output=True, text=True, timeout=900)
+                    cwd=d, capture_output=True, text=True, timeout=900,
+                    env={**os.environ, **env})
                 if res.returncode != 0:
                     raise AssertionError(f"{label} {mode}: exit "
                                          f"{res.returncode}\n"

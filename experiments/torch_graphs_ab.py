@@ -1,7 +1,7 @@
 """The perturbation schedule as CUDA graphs against the same steps launched
 eagerly, on one card.
 
-    python3 experiments/torch_graphs_ab.py [out.json]
+    python3 experiments/torch_graphs_ab.py [out.json] [--on-only]
 
 First each hand kernel's wrapper alone under capture (one kernel node, the
 replay equal to the eager call). Then the perturbation schedule of the deep
@@ -15,13 +15,16 @@ kernels (inside a graph, or between two eager launches) and longer ones
 (the host's turn: a flag read, a replay), the peak of allocated device
 memory over the run above what was allocated before it, graph replays,
 captures and capture seconds, launches of both kernels; results equal in
-every run. One JSON line per run, then the card's name and power limit and
-one summary line (also written to out.json). Compare only within one call.
+every run. With ``--on-only`` each schedule runs twice with graphs on and
+never off (the A/B of two checkouts, each running this script). One JSON
+line per run, then the card's name and power limit and one summary line
+(also written to out.json). Compare only within one call.
 Before the schedules, one chunk of 2 trips of the deep bucket's ascent
 alone, eager and as a graph: time per call between CUDA events over calls
 back to back beside its kernels' device time and count (``_chunk_graph``);
-and each schedule once with graphs, its host time cut into step calls,
-flag reads (with the wait for the device) and the rest (``_host_split``).
+and each schedule three times with graphs, its host time cut into step calls,
+flag reads (with the wait for the device), the round draws, the table
+build and the rest (``_host_split``).
 """
 
 from __future__ import annotations
@@ -149,15 +152,30 @@ def _host_split(run) -> dict:
     """One call of ``run`` with graphs on, no profiler, its host time cut
     by the clock: inside the runner's step calls (replays, and the first
     calls and captures), inside its flag reads (the wait for the device
-    included) and the rest (the schedule's own Python)."""
+    included), inside the set-up's round draws (``cuda_draws.round_draws``,
+    a launch on the card; in a checkout that draws on the host,
+    ``rng.predraw_rounds``, the copy to the card not included), inside
+    its table build (``optimize._fast_tables_for``) and the rest (the
+    schedule's own Python)."""
+    import importlib
     import time
 
     import torch
 
     from longcallr_tpu_torch.phasing import graphs as G
+    from longcallr_tpu_torch.phasing import optimize as O
 
-    spent = {"steps": 0.0, "flag_reads": 0.0}
-    call, flag = G.Runner.__call__, G.Runner.flag
+    try:
+        draws = (importlib.import_module(
+            "longcallr_tpu_torch.phasing.cuda_draws"), "round_draws")
+    except ImportError:
+        draws = (importlib.import_module("longcallr_tpu_torch.phasing.rng"),
+                 "predraw_rounds")
+    spent = {"steps": 0.0, "flag_reads": 0.0, "draws": 0.0, "tables": 0.0}
+    patched = [(G.Runner, "__call__", "steps"), (G.Runner, "flag",
+                                                 "flag_reads"),
+               (*draws, "draws"), (O, "_fast_tables_for", "tables")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
 
     def timed(key, fn):
         def wrapper(*a, **k):
@@ -168,8 +186,8 @@ def _host_split(run) -> dict:
                 spent[key] += time.perf_counter() - t0
         return wrapper
 
-    G.Runner.__call__ = timed("steps", call)
-    G.Runner.flag = timed("flag_reads", flag)
+    for (obj, name, key), (_, _, fn) in zip(patched, saved):
+        setattr(obj, name, timed(key, fn))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -177,10 +195,14 @@ def _host_split(run) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        G.Runner.__call__, G.Runner.flag = call, flag
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
     return {"wall_seconds": wall, "in_steps_seconds": spent["steps"],
             "in_flag_reads_seconds": spent["flag_reads"],
-            "rest_seconds": wall - spent["steps"] - spent["flag_reads"]}
+            "draws_by": f"{draws[0].__name__.rsplit('.', 1)[-1]}.{draws[1]}",
+            "in_draws_seconds": spent["draws"],
+            "in_table_build_seconds": spent["tables"],
+            "rest_seconds": wall - sum(spent.values())}
 
 
 def main() -> int:
@@ -196,6 +218,8 @@ def main() -> int:
                                                           make_genome_workload)
     from longcallr_tpu_torch.utils.device import resolve_device
 
+    args = [a for a in sys.argv[1:] if not a.startswith("--")]
+    order = (True, True) if "--on-only" in sys.argv[1:] else ORDER
     dev = resolve_device("cuda")
     card = C._card()
     _build.load()
@@ -216,12 +240,13 @@ def main() -> int:
                          dev, (sbam, sfa), contig="chr1", n=5))}
         rows.append({"chunk_graph": _chunk_graph(dev, bucket)})
         print(json.dumps(rows[-1]), flush=True)
-        rows.append({"host_split": {label: _host_split(run)
+        rows.append({"host_split": {label: [_host_split(run)
+                                            for _ in range(3)]
                                     for label, run in schedules.items()}})
         print(json.dumps(rows[-1]), flush=True)
         first = {}
         for label, run in schedules.items():
-            for on in ORDER:
+            for on in order:
                 CK.reset_launches()
                 out, num = C._idle_share(run, on)
                 flat = C._flat(out)
@@ -237,10 +262,9 @@ def main() -> int:
     ok = all(r.get("equal", True) for r in rows)
     print(card)
     summary = {"ok": ok, "card": card, "runs": rows}
-    if len(sys.argv) > 1:
-        os.makedirs(os.path.dirname(os.path.abspath(sys.argv[1])),
-                    exist_ok=True)
-        with open(sys.argv[1], "w") as f:
+    if args:
+        os.makedirs(os.path.dirname(os.path.abspath(args[0])), exist_ok=True)
+        with open(args[0], "w") as f:
             json.dump(summary, f, indent=1)
     print(json.dumps({"ok": ok}))
     return 0 if ok else 1

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels.
 
 The sources in ``csrc/`` are compiled at first use with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, under
+``sm_90a``, one ``nvcc`` per source started together, and linked into one
+shared library with a plain C interface, under
 ``longcallr_tpu_torch/build/`` (git-ignored), and loaded with ``ctypes``.
 The library's file name carries a hash of the sources and flags, so an edit
 rebuilds and a stale library is never loaded. Nothing here runs at import
@@ -61,8 +62,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.split_matvec_cols.restype = i
     lib.split_matvec_cols.argtypes = [vp, vp, i, vp, vp, vp, vp, i, i, i, i,
                                       i, i, i, vp]
+    lib.round_draws.restype = i
+    lib.round_draws.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.graph_kernel_nodes.restype = i
     lib.graph_kernel_nodes.argtypes = [vp, ctypes.POINTER(i)]
+
+
+def _check_build(cmd, returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
+            returncode, " ".join(cmd), stderr[-4000:]))
 
 
 def load() -> ctypes.CDLL:
@@ -77,11 +86,29 @@ def load() -> ctypes.CDLL:
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed (exit %d):\n%s\n%s" % (
-                    res.returncode, " ".join(cmd), res.stderr[-4000:]))
+            # one nvcc per source, all at once, then one link
+            objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            jobs = [[_nvcc(), *compile_flags, "-c", "-o", obj, src]
+                    for src, obj in zip(srcs, objs)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)
+                     for cmd in jobs]
+            try:
+                for cmd, proc in zip(jobs, procs):
+                    _, err = proc.communicate()
+                    _check_build(cmd, proc.returncode, err)
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                _check_build(cmd, res.returncode, res.stderr)
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                for obj in objs:
+                    if os.path.exists(obj):
+                        os.remove(obj)
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         _declare(lib)

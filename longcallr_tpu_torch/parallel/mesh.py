@@ -53,10 +53,10 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..phasing import cuda_draws as CD
 from ..phasing import cuda_kernels as CK
 from ..phasing import kernels_fast as KF
 from ..phasing import optimize as O
-from ..phasing import rng as R
 from ..phasing.kernels import (TIE_TOL, CellTables, CompactCells, expand_cells,
                                f64, overall_probability, read_logliks, sigma_q,
                                snp_qs, snp_sums)
@@ -527,18 +527,17 @@ def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
         steps = O._spec_steps(expand_cells(batch.cells), rb, sm, cons, False,
                               False)
 
-    # every round's randoms of every region, drawn up front from the
-    # region's own key at the padded sizes: (t, b) draws are those of
-    # fold_in(keys[b], t) → split → uniform, whatever the bucket holds
+    # every round's randoms of every region, drawn up front on the device
+    # in one launch from the regions' own keys at the padded sizes: (t, b)
+    # draws are those of fold_in(keys[b], t) → split → uniform, whatever
+    # the bucket holds. The JAX package draws R_max = I // 4 + 1 rounds; the
+    # loop reads the first max_rounds, which are the same bits drawn alone
     R_max = I // 4 + 1
     if max_rounds > R_max:
         raise ValueError(f"{max_rounds} rounds exceed the {R_max} drawn for "
                          f"I = {I}")
-    draws = [R.predraw_rounds(np.asarray(k), K, I) for k in keys]
-    rg_all = torch.as_tensor(np.stack([d[0][:max_rounds] for d in draws],
-                                      axis=1), device=dev)     # [R,B,I]
-    fl_all = torch.as_tensor(np.stack([d[1][:max_rounds] for d in draws],
-                                      axis=1), device=dev)     # [R,B,K]
+    rg_all, fl_all = CD.round_draws(CD.key_words(keys, dev).reshape(B, 2),
+                                    max_rounds, I, K)
     # the schedule runs the bucket's loop on the device (optimize.
     # _run_schedule); a member past its rounds keeps its state
     b_st, b_p, trips = O._run_schedule(

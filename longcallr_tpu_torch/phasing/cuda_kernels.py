@@ -53,8 +53,8 @@ launches, so the run can also show at which shapes. ``LAUNCHES_BY_DEVICE``
 counts them per card (device index) and ``LAUNCHES_BY_ROW`` per row of a
 regions mesh: ``parallel/mesh.py`` names the row of each thread it runs
 (``set_launch_row``), so a run can show that every row launched, also
-where the rows repeat one card. ``reset_launches`` clears all four and the
-graph counters below.
+where the rows repeat one card. ``reset_launches`` clears all four, the
+graph counters below and the round draws' counts (``cuda_draws``).
 
 Under CUDA graph capture (``phasing/graphs.py``) a wrapper's launch becomes
 a node of the graph and runs only when the graph is replayed: the capture
@@ -124,6 +124,8 @@ _GRID_YZ_MAX = 65535
 
 
 def reset_launches() -> None:
+    from .cuda_draws import reset_draw_launches
+
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
@@ -133,6 +135,7 @@ def reset_launches() -> None:
         GRAPHS.update(replays=0, captures=0, capture_seconds=0.0)
         for k in GRAPH_LAUNCHES:
             GRAPH_LAUNCHES[k] = 0
+    reset_draw_launches()
 
 
 def set_launch_row(row: Optional[int]) -> None:

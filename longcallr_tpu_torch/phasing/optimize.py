@@ -24,8 +24,9 @@ the same device (``N_F64_RERUNS`` counts them).
 
 The host passes (LD blocks, BFS haplotype init, enumeration order, the
 exact block-flip pass) are copied from the JAX package unchanged; the
-perturbation randoms come from ``rng.py`` (bit-identical to the JAX
-package's ``jax.random`` draws).
+perturbation randoms are drawn on the device by ``cuda_draws.round_draws``
+from the keys of ``rng.prng_key`` (bit-identical to the JAX package's
+``jax.random`` draws).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..config import CallerConfig
 
 from ..ops.candidates import CandidateSet
 from ..utils.device import phase_problem_device, resolve_device
+from . import cuda_draws as CD
 from . import graphs
 from . import kernels_fast as KF
 from . import rng as R
@@ -503,12 +505,16 @@ def _perturbation_impl(ct, st: PhaseState, best_st: PhaseState, best_prob,
     else:
         steps = _spec_steps(ct, read_base, site_mask, conserved, False,
                             False)
-    rg_np, fl_np = R.predraw_rounds(key, K, I)
+    # the rounds' randoms, drawn on the device in one launch: the first
+    # n_rounds of the JAX package's I // 4 + 1 (the same bits)
+    n_rounds = int(n_rounds)
+    if n_rounds > I // 4 + 1:
+        raise ValueError(f"{n_rounds} rounds exceed the {I // 4 + 1} drawn "
+                         f"for I = {I}")
+    rg_all, fl_all = CD.round_draws(CD.key_words(key, dev), n_rounds, I, K)
     b_st, b_p, trips = _run_schedule(
         steps, best_st, torch.as_tensor(best_prob, dtype=f64, device=dev),
-        read_base, torch.as_tensor(rg_np, device=dev),
-        torch.as_tensor(fl_np, device=dev), int(n_rounds),
-        capture=USE_FAST_KERNELS)
+        read_base, rg_all, fl_all, n_rounds, capture=USE_FAST_KERNELS)
     return (b_st, b_p, int(trips.sum())) if with_iters else (b_st, b_p)
 
 
