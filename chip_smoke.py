@@ -56,7 +56,15 @@ package) and fails on the first check that does not hold:
                the host path it replaces (rng.predraw_rounds per region, the
                copy to the card); device time warm and cold beside the
                bound, the larger of bytes / 3.35 TB/s and int32 operations /
-               16.7 T/s (DRAW_OPS a value);
+               16.7 T/s (DRAW_OPS a value); once more bit for bit at 65,536
+               keys of 2 rounds, more keys than a grid dimension holds. The
+               set-condition kernel of the device programs' WHILE nodes
+               (csrc/graph_program.cu) against its plain version, the host's
+               read of the loop flag: a loop of 0, 1, 7 and 1,000 turns as a
+               device program and by the plain executor, the same count and
+               body runs; a turn's device time over 20,000 turns in one
+               launch, the plain executor's, and the kernel's own from
+               torch.profiler where it traces inside the program;
   3. tables  — the split-table build on a bucket of four deep regions
                against the build of each region alone;
   4. goldens — the four simulated preset workloads of the JAX package's
@@ -73,7 +81,10 @@ package) and fails on the first check that does not hold:
                launch the round draws; the
                stage counters and the bucket census are printed; (d) the
                genome workload (3 contigs, 8 loci, one 300x locus) batched
-               and --no-batched: equal; (e) the deep input cut into >= 3
+               and --no-batched: equal, with the device peak and the bytes
+               its programs held, and batched with a budget of one byte for
+               the programs held (each freed after its shape's call):
+               equal, programs freed; (e) the deep input cut into >= 3
                waves (LONGCALLR_WAVE_CELLS) with the write overlap on:
                equal to (a); (f) the deep input as one wave, its four
                regions in one bucket: equal to (a), with the peak of the
@@ -166,24 +177,46 @@ package) and fails on the first check that does not hold:
                every row in (d);
                region_phase, phase_fused and walls are printed beside
                phases 6 and 8;
- 19. graphs  — (run right after phase 8) the perturbation schedule as CUDA
-               graphs (phasing/graphs.py) against the same steps launched
-               eagerly (graphs.ENABLED off, then on): each wrapper alone
+ 19. graphs  — (run right after phase 8) the fused bucket phase and the
+               perturbation schedule as device programs (phasing/graphs.py:
+               CUDA graphs with conditional WHILE nodes, composed by
+               csrc/graph_program.cu) against the plain executor of the same
+               pieces (graphs.ENABLED off, then on): each wrapper alone
                under capture gives a graph of one kernel node whose replay
                equals the eager call bit for bit; the deep input through
-               the CLI at the default waves and as one wave of 4, one deep
-               region through phase_region and the stream input resident
-               with 8 threads: bytes, sorted HP/PS tags and the launch
-               census equal (the round draws' too), replays only with
-               graphs on and both kernels
-               launched inside graphs there; replays, captures, capture
-               seconds, region_phase, phase_fused, wall and the device peak
-               of each run, and the device's idle share (torch.profiler,
-               kernel rows) over the schedule of a bucket of the leg's
-               shapes with graphs off and on.
+               the CLI at the default waves and as one wave of 4 and the
+               stream input resident with 8 threads: bytes, sorted HP/PS
+               tags and the launch census equal (the round draws' too),
+               equal to the JAX package's digests, and with the program on:
+               program launches, no host flag read, as many set-condition
+               launches (counted on the device) as the program-off run's
+               flag reads, one build per distinct shape, both kernels
+               launched through the programs' runs and no program cached
+               after the run; beside each leg batched_perturbation_phase of
+               a bucket of its shapes (a default wave of 2, the deep bucket
+               of 4, a stream wave of 5), program off and on, equal; one
+               deep region through phase_region the same way; builds,
+               captures, capture and instantiate seconds, device bytes held
+               per program, region_phase, phase_fused, wall and the device
+               peak of each run; the wall from launch to sync of each
+               schedule above, and with the device's idle share that of one
+               bucket's fused phase (the deep bucket of 4) and of the
+               region's schedule, program off and on, each after a first
+               call that builds its program: the idle share from
+               torch.profiler (kernel rows; only where the
+               profiler counts every hand kernel that the census counts),
+               and its lower bound from the device clock read before and
+               after every piece (gp_stamp): the share of the call's span
+               outside the pieces.
 
-Every phase runs with graphs on (the default) but the off legs of phase
-19.
+The deep input (per region, default waves, one wave), the genome workload
+and the stream input (both legs) are held to the frozen digests of the JAX
+package's output (tests/golden/reference_digests.json,
+experiments/reference_digests.py) wherever the card runs them through the
+CLI.
+
+Every phase runs with the device programs on (the default) but the off
+legs of phase 19.
 
 The goldens of phase 4 and the enumeration workloads of phase 6 run with
 the placement off (everything on the card, as before there was one): at its
@@ -212,7 +245,9 @@ its launches on the default batched deep run, ``launches_<run>`` for every
 other run that counted them, its times at every shape of phase 2 under
 ``shapes`` and, under ``checked_at_launched_shapes``, every shape the runs
 launched it at, each held against the plain version once more after the
-runs), the card's name and power limit (nvidia-smi), and last the result
+runs; the entry of ``set_condition`` its launches on the default batched
+deep run and ``launches_<run>`` for the other CLI runs, from the program
+counters), the card's name and power limit (nvidia-smi), and last the result
 line.
 """
 
@@ -829,6 +864,110 @@ def _draws_at_launched_shapes(dev) -> list:
     return [list(s) for s in shapes]
 
 
+# the set-condition kernel of csrc/graph_program.cu (the device side of a
+# conditional WHILE node), checked and timed in phase kernels; its launches
+# on the default batched deep run are read from the program counters
+SET_CONDITION: dict = {}
+SET_TURNS = 20000
+# bytes a turn of a loop moves through the set-condition kernel: the flag
+# read, the body-run counter and the count of its own launches each read
+# and written
+SET_BYTES = 1 + 8 + 8 + 8 + 8
+# the device programs' counters (cuda_kernels.GRAPHS) by run, read just
+# after the run
+PROGRAM_RUNS: dict = {}
+
+
+def _turn_program(dev):
+    """A device program of one loop: its body adds 1 to a counter until the
+    counter reaches the input ``n``."""
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    x = torch.zeros((), dtype=torch.int64, device=dev)
+    n = torch.zeros((), dtype=torch.int64, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def start():
+        x.zero_()
+        flag.copy_(x < n)
+
+    def turn():
+        x.add_(1)
+        flag.copy_(x < n)
+
+    return G.Program(dev, {"n": n}, (G.Piece("start", start), G.While(
+        flag, (G.Piece("turn", turn),))), (x,))
+
+
+def _set_condition(dev) -> dict:
+    """The set-condition kernel against its plain version, the host's read
+    of the loop flag (the plain executor): the loop of ``_turn_program``
+    for 0, 1, 7 and 1,000 turns, as a device program and plainly, must
+    count the same and run its body as often; then the device time of a
+    turn between CUDA events over SET_TURNS turns in one launch (the
+    kernel, the body's two small kernels and the WHILE node's own), the
+    plain executor's time of a turn, and the kernel's own device time from
+    torch.profiler where it traces inside the program."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    make = lambda: _turn_program(dev)
+    err = 0
+    for n in (0, 1, 7, 1000):
+        got = {}
+        for on in (False, True):
+            G.ENABLED = on
+            try:
+                CK.reset_launches()
+                got[on] = (int(G.run(("turns",), dev, make, {"n": n})[0]),
+                           CK.GRAPHS["body_runs"], CK.GRAPHS["flag_reads"],
+                           CK.GRAPHS["condition_sets"])
+            finally:
+                G.ENABLED = True
+        off, on = got[False], got[True]
+        err = max(err, abs(off[0] - on[0]))
+        if off[0] != n or on[0] != n or on[1] != n or on[3] != off[2]:
+            raise AssertionError(f"set_condition, {n} turns: plain {off}, "
+                                 f"program {on}")
+
+    def per_turn(on: bool, n: int) -> float:
+        G.ENABLED = on
+        try:
+            G.run(("turns",), dev, make, {"n": n})
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            a.record()
+            G.run(("turns",), dev, make, {"n": n})
+            b.record()
+            b.synchronize()
+        finally:
+            G.ENABLED = True
+        return a.elapsed_time(b) / n
+
+    ms, plain_ms = per_turn(True, SET_TURNS), per_turn(False, 200)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        G.run(("turns",), dev, make, {"n": 1000})
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "set_condition" in e.key]
+    G.free_all()
+    bound_ms = SET_BYTES / PEAK_BYTES_PER_S * 1e3
+    SET_CONDITION.update(
+        max_abs_err=float(err), turns_timed=SET_TURNS, ms=ms,
+        plain_ms=plain_ms,
+        kernel_ms_traced=(sum(e.self_device_time_total for e in rows)
+                          / max(1, sum(e.count for e in rows)) / 1e3
+                          if rows else None),
+        kernel_launches_traced=sum(e.count for e in rows),
+        bound_ms=bound_ms, bound_by="bytes", bound_bytes=SET_BYTES,
+        library_ms=None)
+    return dict(SET_CONDITION)
+
+
 def phase_kernels(card: str, dev):
     """Kernel vs plain at the listed shapes, the σ and alignment cases of
     matvec_cols, the threaded calls, and the timings at the two main-path
@@ -889,6 +1028,11 @@ def phase_kernels(card: str, dev):
         res.update(_time_device(name, *kerns[name], hi, lo, op, flush))
     _draws_device_phase(dev, draws, flush)
     stats["round_draws"] = draws
+    # more keys than a grid dimension holds: the kernel folds them
+    many = {"keys": 65536, "rounds": 2, "I": 8, "K": 16, "bit_equal": True}
+    many["max_abs_err"] = _draws_equal("65,536 keys", _draw_keys(
+        65536).to(dev), 2, 8, 16)
+    stats["set_condition"] = _set_condition(dev)
 
     # matvec_cols: σ patterns and the scalar path at the deep size
     kern, plain = kerns["matvec_cols"]
@@ -923,7 +1067,8 @@ def phase_kernels(card: str, dev):
 
     threaded = _threads_check(CK, rng, dev)
     _emit("kernels", card, rel_tol=REL_TOL, device_ms_by=DEVICE_TIMER["by"],
-          shapes=rows, cols_cases=cases, threaded=threaded, draws=draws)
+          shapes=rows, cols_cases=cases, threaded=threaded, draws=draws,
+          draws_65536_keys=many, set_condition=stats["set_condition"])
     return stats
 
 
@@ -1067,6 +1212,8 @@ def phase_deep(card: str, tmp: str):
         raise AssertionError("deep run wrote no records")
     if out.n_split_kept <= 0:
         raise AssertionError("every region needed the f64 rerun")
+    reference = _hold_to_reference("deep input, per-region loop", "deep",
+                                   prefix)
     _emit("deep", card, reads=params["n_reads"], regions=out.n_regions,
           placed=_all_on_card("deep input, per-region loop", out),
           records=out.n_records, phased_sites=out.n_phased_sites,
@@ -1074,7 +1221,8 @@ def phase_deep(card: str, tmp: str):
           reads_per_second=params["n_reads"] / wall,
           stage_seconds=out.stage_seconds, launches=launches,
           launch_shapes=shapes, draw_launches=draws,
-          split_regions_kept=out.n_split_kept, f64_reruns=out.n_f64_reruns)
+          split_regions_kept=out.n_split_kept, f64_reruns=out.n_f64_reruns,
+          reference=reference)
     return bam, fa, out, (launches, shapes), params["n_reads"]
 
 
@@ -1110,6 +1258,7 @@ def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
         rc = cli.main(argv)
         wall = time.monotonic() - t0
         launches = dict(CK.LAUNCHES)
+        PROGRAM_RUNS[label] = dict(CK.GRAPHS)
         _draws_read(label)
     if rc != 0:
         raise AssertionError(f"{label}: cli.main returned {rc}")
@@ -1251,7 +1400,10 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                   n_reads: int, notes: dict):
     """The batched pipeline on the card: (a) the deep input with no
     --batched flag, held against the per-region run (b) of phase_deep;
-    (d) the genome workload both ways; (e) the deep input in >= 3 waves
+    (d) the genome workload both ways, with the device peak and the bytes
+    its programs held, and batched once more with every program but the
+    last freed after each call (a budget of one byte), byte-equal; (e) the
+    deep input in >= 3 waves
     with the write overlap on; (f) the deep input as one wave, with the
     peak of the device memory; (h) the same with the finalize fan-out on;
     (g) and (i) two enumeration workloads (``_enum_workload``). After each
@@ -1259,6 +1411,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     launches must be shapes that phase_kernels checked. Returns (launch
     counts, launch shapes) by run; ``notes`` gets the times of (a), (f)
     and (i) for phase mesh."""
+    from longcallr_tpu_torch.phasing import graphs as G
     from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
 
     # (a) AUTO resolves to the batched pipeline for the deep input's regions
@@ -1274,6 +1427,8 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"batched main path")
     _draws_read("deep_batched", must=True)
+    if PROGRAM_RUNS["deep_batched"]["condition_sets"] <= 0:
+        raise AssertionError("the batched main path ran no device program")
     want = _payloads(per_region_out.vcf_path[:-len(".vcf")])
     got = _payloads(prefix)
     _must_equal("(b) batched vs --no-batched, deep input", got, want)
@@ -1284,14 +1439,37 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         "draws": DRAW_RUNS["deep_batched"],
         "placed": _all_on_card("(a) deep input, batched", out),
         "stage_seconds": stage, "split_regions_kept": out.n_split_kept,
-        "f64_reruns": out.n_f64_reruns},
+        "f64_reruns": out.n_f64_reruns,
+        "reference": _hold_to_reference("(a) deep input, batched", "deep",
+                                        prefix)},
         "b_equal_to_per_region": True}
     notes["a"] = _phase_times(wall, out)
 
     # (d) the genome workload: 3 contigs, 8 loci, one 300x locus
     gbam, gfa = os.path.join(tmp, "genome.bam"), os.path.join(tmp, "genome.fa")
     gparams = make_genome_workload(gbam, gfa)
+    G.reset_builds()
+    torch.cuda.synchronize()
+    gheld = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     gp, gout, glaunch, gwall = _cli_run(tmp, "genome_batched", gbam, gfa)
+    gpeak = torch.cuda.max_memory_allocated() - gheld
+    gprograms = _program_counts()
+    # the same with a budget of one byte for the programs held: every other
+    # program is freed after each call (graphs._trim), and the next call of
+    # its shape builds it anew
+    budget = G._budget
+    G._budget = lambda: 1
+    try:
+        ep_, eout_, _, ewall_ = _cli_run(tmp, "genome_evicting", gbam, gfa)
+    finally:
+        G._budget = budget
+    evicting = dict(PROGRAM_RUNS["genome_evicting"])
+    _must_equal("(d) genome workload, programs freed beyond a budget",
+                _payloads(ep_), _payloads(gp))
+    if gprograms["evicted"] or (gprograms["distinct_shapes"] > 1
+                                and evicting["evicted"] <= 0):
+        raise AssertionError(f"(d) evictions: {gprograms}, {evicting}")
     gp2, gout2, glaunch2, gwall2 = _cli_run(tmp, "genome_per_region", gbam,
                                             gfa, extra=["--no-batched"])
     _must_equal("(d) genome workload, batched vs --no-batched",
@@ -1301,9 +1479,14 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     res["d_genome"] = {
         "reads": gparams["n_reads"], "regions": gout.n_regions,
         "records": gout.n_records, "equal": True,
+        "reference": _hold_to_reference("(d) genome workload", "genome", gp),
         "batched": {"wall_seconds": gwall, "launches": glaunch,
                     "census": _census(gout.stage_seconds),
-                    "region_phase": gout.stage_seconds.get("region_phase")},
+                    "region_phase": gout.stage_seconds.get("region_phase"),
+                    "peak_device_bytes": gpeak, "programs": gprograms},
+        "programs_beyond_a_budget_of_one_byte": {
+            "wall_seconds": ewall_, "equal": True, "programs": evicting,
+            "region_phase": eout_.stage_seconds.get("region_phase")},
         "per_region": {"wall_seconds": gwall2, "launches": glaunch2,
                        "region_phase":
                            gout2.stage_seconds.get("region_phase")}}
@@ -1348,6 +1531,9 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                               "peak_device_bytes": peak,
                               "bucket_cells": cells,
                               "peak_bytes_per_cell": peak / cells,
+                              "reference": _hold_to_reference(
+                                  "(f) deep input, one wave",
+                                  "deep_one_wave", fp),
                               "equal": True}
 
     # (h) the same wave with the finalize of its four regions on threads
@@ -1520,7 +1706,9 @@ def phase_stream(card: str, tmp: str, notes: dict):
             "host_rss_start_bytes": rss.start, "host_rss_peak_bytes": rss.peak,
             "host_rss_growth_bytes": rss.peak - rss.start,
             "device_bytes_held_before": held,
-            "device_peak_bytes": max(peaks + [run_peak])}
+            "device_peak_bytes": max(peaks + [run_peak]),
+            "reference": _hold_to_reference(f"stream input, {flag}",
+                                            "stream", prefix)}
         if label == "stream":
             if len(peaks) != 5:
                 raise AssertionError(f"expected 5 contigs, saw {len(peaks)}")
@@ -2236,11 +2424,12 @@ def _rows_drew(what: str, mesh, rows_needed: int = 0) -> dict:
     return {str(r): by_row[r] for r in sorted(by_row)}
 
 
-def _deep_bucket(dev, deep_input, contig=None, n=None):
+def _deep_bucket(dev, deep_input, contig=None, n=None, blocks=False):
     """The deep input's four regions as one bucket (or the first ``n``
     regions of ``contig`` of another input), each region's arrays and
     random stream as phase_regions_batched makes them: (BatchedRegions on
-    ``dev``, σ0, δ0, η0 (numpy), round counts, threefry keys)."""
+    ``dev``, σ0, δ0, η0 (numpy), round counts, threefry keys), and with
+    ``blocks`` the regions' LD block ids [B, I] (numpy, −1 = none)."""
     from longcallr_tpu_torch.config import preset
     from longcallr_tpu_torch.io.bam import BamFile
     from longcallr_tpu_torch.io.fasta import FastaFile
@@ -2270,14 +2459,16 @@ def _deep_bucket(dev, deep_input, contig=None, n=None):
                     np.zeros((B, I), bool))
     sigma0, delta0, eta0 = np.zeros((B, K)), np.ones((B, I)), np.ones((B, I))
     rounds, keys = np.zeros(B, np.int64), []
+    bid = np.full((B, I), -1, np.int32)
     for b, (reg, cands, frags) in enumerate(preps):
         K0, I0 = frags.p.shape
         p[b, :K0, :I0], q[b, :K0, :I0] = frags.p, frags.baseq
         rb[b, :K0], sm[b, :I0] = frags.for_phasing, cands.for_phasing
         rng = np.random.default_rng(np.random.SeedSequence([cfg.seed,
                                                             reg.start]))
-        d0, c0 = O.init_haplotypes_ld(cands, O.compute_ld_blocks(cands, frags),
-                                      rng)
+        ld = O.compute_ld_blocks(cands, frags)
+        bid[b, :ld.block_id.shape[0]] = ld.block_id
+        d0, c0 = O.init_haplotypes_ld(cands, ld, rng)
         delta0[b, :I0], cons[b, :I0] = d0, c0
         eta0[b, :I0] = O.init_genotype(cands)
         sigma0[b] = np.where(rb[b], np.where(rng.random(K) < 0.5, -1.0, 1.0),
@@ -2286,7 +2477,8 @@ def _deep_bucket(dev, deep_input, contig=None, n=None):
         keys.append(R.prng_key(int(rng.integers(0, np.iinfo(np.int64).max,
                                                 dtype=np.int64))))
     batch = M.BatchedRegions.from_numpy(p, q, rb, sm, cons, dev)
-    return batch, (sigma0, delta0, eta0), rounds, keys
+    out = (batch, (sigma0, delta0, eta0), rounds, keys)
+    return out + (bid,) if blocks else out
 
 
 # the rounds of (d) and the stream contigs of (c) in phase mesh
@@ -2460,26 +2652,153 @@ def _graph_nodes(dev) -> dict:
     return res
 
 
-def _idle_share(run, graphs_on: bool) -> tuple:
-    """One call of ``run`` (a schedule) with graphs on or off: its wall
-    (host clock, ending in a synchronise), then a second call under
-    torch.profiler for the device time of its kernels (DeviceType.CUDA rows
-    only) and the device's idle share, 1 − busy / wall. Returns (the first
-    call's result, the numbers)."""
+def _hand_kernels_traced(prof) -> int:
+    """Device kernels of the two hand kernels in a torch.profiler session
+    (split_* wrappers: rows_*_kernel and cols_kernel)."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and ("rows_" in e.key or "cols_kernel" in e.key))
+
+
+# slots of the device clock's stamps in one call of a stamped program
+STAMP_SLOTS = 1 << 15
+
+
+def _stamped_run(dev):
+    """A stand-in for graphs.run that builds every program with a stamp of
+    the device clock (csrc/graph_program.cu, gp_stamp) before and after
+    each piece, under a key of its own; and the stamps' buffers (times,
+    the next slot)."""
+    from longcallr_tpu_torch._build import load
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    lib = load()
+    times = torch.zeros(STAMP_SLOTS, dtype=torch.int64, device=dev)
+    nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+    real = G.run
+
+    def stamp():
+        err = lib.gp_stamp(torch.cuda.current_stream(dev).cuda_stream,
+                           times.data_ptr(), nxt.data_ptr(), STAMP_SLOTS)
+        if err:
+            raise RuntimeError(f"gp_stamp: cudaError {err}")
+
+    def stamped(make):
+        def make_stamped():
+            prog = make()
+            memo = {}
+
+            def piece(p):
+                if id(p) not in memo:
+                    def fn(f=p.fn):
+                        stamp()
+                        f()
+                        stamp()
+                    memo[id(p)] = G.Piece(p.name, fn)
+                return memo[id(p)]
+
+            def nodes(ns):
+                return tuple(piece(n) if isinstance(n, G.Piece)
+                             else G.While(n.flag, nodes(n.body)) for n in ns)
+
+            return G.Program(prog.device, prog.inputs, nodes(prog.nodes),
+                             prog.outputs)
+        return make_stamped
+
+    def run(kind, device, make, values, capture=True):
+        return real(kind + ("stamped",), device, stamped(make), values,
+                    capture)
+
+    return run, times, nxt
+
+
+def _where_time_goes(run, dev) -> dict:
+    """One call of ``run`` with every program stamped (``_stamped_run``;
+    a first call builds the stamped program): the device's span of the call
+    between CUDA events, the time inside the pieces (their kernels and the
+    gaps between a piece's kernels), and the share of the span outside
+    every piece: the loops' control (set-condition kernels and WHILE nodes
+    on the card, host flag reads and launches with the program off), the
+    input copies, the stamps. The device is idle at least that share of the
+    call; the gaps inside the pieces are not separable from their kernels
+    without a tracer."""
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    stamped, times, nxt = _stamped_run(dev)
+    real = G.run
+    G.run = stamped
+    try:
+        run()
+        nxt.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        run()
+        b.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        G.run = real
+    n = int(nxt.item())
+    if n % 2 or n > STAMP_SLOTS or n == 0:
+        raise AssertionError(f"stamps: {n} of {STAMP_SLOTS}")
+    t = times[:n].cpu().numpy().astype(np.float64) / 1e9
+    inside = float((t[1::2] - t[0::2]).sum())
+    span = a.elapsed_time(b) / 1e3
+    return {"stamped_wall_seconds": wall, "stamped_span_seconds": span,
+            "piece_runs": n // 2, "in_pieces_seconds": inside,
+            "first_to_last_stamp_seconds": float(t[-1] - t[0]),
+            "idle_share_at_least": 1.0 - inside / span}
+
+
+def _idle_share(run, graphs_on: bool, traced: bool = True) -> tuple:
+    """``run`` (a phase program) with the device program on or off: a first
+    call (with the program on, it builds the program of the shape), then
+    one call timed from launch to sync (host clock, ending in a
+    synchronise) and between CUDA events on its stream (the device's span
+    of the call), then, where ``traced``, one under torch.profiler for the
+    device time of its kernels (DeviceType.CUDA rows only) and the device's
+    idle share, 1 − busy / wall. The profiler's count of the hand kernels is held
+    against the census of the timed call: where it sees fewer (kernels
+    inside conditional nodes not attributed), no idle share is taken from
+    it; the device clock's stamps around the pieces give its lower bound
+    (``_where_time_goes``). Returns (the timed call's result, the
+    numbers)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import graphs as G
 
     saved = G.ENABLED
     G.ENABLED = graphs_on
     try:
+        run()
         torch.cuda.synchronize()
+        CK.reset_launches()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        a.record()
         out = run()
+        b.record()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        busy_us = 0.0
+        span = a.elapsed_time(b) / 1e3
+        counted = sum(CK.LAUNCHES.values())
+        census = dict(CK.LAUNCHES)
+        programs = dict(CK.GRAPHS)
+        if not traced:
+            return out, {"wall_seconds": wall, "device_span_seconds": span,
+                         "census": census,
+                         "program_launches": programs["launches"],
+                         "flag_reads": programs["flag_reads"],
+                         "condition_sets": programs["condition_sets"]}
+        busy_us, seen = 0.0, 0
         for attempt in range(4):    # a profile now and then traces nothing
             time.sleep(0.2 * attempt)
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2488,13 +2807,26 @@ def _idle_share(run, graphs_on: bool) -> tuple:
             busy_us = sum(e.self_device_time_total
                           for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA)
+            seen = _hand_kernels_traced(prof)
             if busy_us > 0:
                 break
+        stamps = _where_time_goes(run, torch.device(
+            "cuda", torch.cuda.current_device()))
     finally:
         G.ENABLED = saved
     busy = busy_us / 1e6
-    return out, {"wall_seconds": wall, "device_busy_seconds": busy,
-                 "idle_share": 1.0 - busy / wall if busy > 0 else None}
+    sees_all = seen == counted
+    return out, {"wall_seconds": wall, "device_span_seconds": span,
+                 "device_busy_seconds": busy,
+                 "hand_kernels_counted": counted,
+                 "hand_kernels_traced": seen,
+                 "profiler_sees_every_kernel": sees_all,
+                 "idle_share": (1.0 - busy / wall
+                                if busy > 0 and sees_all else None),
+                 **stamps, "census": census,
+                 "program_launches": programs["launches"],
+                 "flag_reads": programs["flag_reads"],
+                 "condition_sets": programs["condition_sets"]}
 
 
 def _bucket_schedule(dev, bucket, n=None):
@@ -2502,11 +2834,7 @@ def _bucket_schedule(dev, bucket, n=None):
     after a first ascent, split mode: a callable for _idle_share."""
     from longcallr_tpu_torch.parallel import mesh as M
 
-    batch, states, rounds, keys = bucket
-    if n is not None:
-        batch = M.BatchedRegions(*(a[:n] for a in batch))
-        states, rounds, keys = ([a[:n] for a in states], rounds[:n],
-                                keys[:n])
+    batch, states, rounds, keys = _first(bucket, n)[:4]
     on = lambda a: torch.as_tensor(a, device=dev)
     sg, dl, et, pr = M.batched_cross_optimize(batch, *map(on, states),
                                               keep_conserved=True, split=True)
@@ -2514,34 +2842,104 @@ def _bucket_schedule(dev, bucket, n=None):
                                                 rounds, keys, split=True)
 
 
-def _schedule_ab(what: str, run) -> dict:
-    """The schedule ``run`` with graphs off and on: the same result, and
-    each one's wall, device busy time and idle share."""
-    a, off = _idle_share(run, False)
-    b, on = _idle_share(run, True)
+def _bucket_fused(dev, bucket, n=None):
+    """batched_phase_fused of ``bucket`` (its first ``n`` regions; made by
+    _deep_bucket with its block ids): a callable for _idle_share."""
+    from longcallr_tpu_torch.parallel import mesh as M
+
+    batch, states, rounds, keys, bid = _first(bucket, n)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    args = (*map(on, states), on(bid))
+    return lambda: M.batched_phase_fused(batch, *args, rounds, keys,
+                                         split=True)
+
+
+def _first(bucket, n):
+    """A bucket of _deep_bucket cut to its first ``n`` regions."""
+    from longcallr_tpu_torch.parallel import mesh as M
+
+    if n is None:
+        return bucket
+    batch, states, rounds, keys, *rest = bucket
+    return (M.BatchedRegions(*(a[:n] for a in batch)),
+            [a[:n] for a in states], rounds[:n], keys[:n],
+            *(a[:n] for a in rest))
+
+
+def _schedule_ab(what: str, run, traced: bool = True) -> dict:
+    """The program ``run`` with the device program off and on: the same
+    result, launch census and loop turns, and each one's wall; where
+    ``traced``, also the device busy time and idle share; where the
+    profiler does not see inside the program, the idle share of the
+    program's call from the busy time of the same kernels launched
+    eagerly (``idle_share_by_eager_busy``)."""
+    a, off = _idle_share(run, False, traced)
+    b, on = _idle_share(run, True, traced)
     if not all(torch.equal(x, y) for x, y in zip(_flat(a), _flat(b))):
-        raise AssertionError(f"{what}: the schedule differs with graphs on")
-    return {"graphs_off": off, "graphs_on": on}
+        raise AssertionError(f"{what}: the program differs from the plain "
+                             f"executor")
+    if on["flag_reads"] or not on["program_launches"] \
+            or on["census"] != off["census"] \
+            or on["condition_sets"] != off["flag_reads"]:
+        raise AssertionError(f"{what}: program off {off}, on {on}")
+    if traced:
+        on["idle_share_by_eager_busy"] = 1.0 - off["device_busy_seconds"] / \
+            on["wall_seconds"]
+    return {"program_off": off, "program_on": on}
 
 
 def _flat(out) -> list:
     return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
 
 
+def _program_counts() -> dict:
+    """The device programs' counters (cuda_kernels.GRAPHS) and, per program
+    built, its shape's key, instantiate seconds and device bytes held
+    (graphs.BUILDS)."""
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    builds = [dict(b) for b in G.BUILDS]
+    return {**CK.GRAPHS, "distinct_shapes": len({b["key"] for b in builds}),
+            "builds_by_shape": builds}
+
+
+def _hold_to_reference(what: str, label: str, prefix: str) -> dict:
+    """A run's VCF records and sorted HP/PS tags against the frozen digests
+    of the JAX package's run of input ``label``."""
+    from longcallr_tpu_torch.utils import goldens
+
+    got = goldens.digests(prefix + ".vcf", prefix + ".phased.bam")
+    want = goldens.reference_digests()[label]
+    if not want.get("ok"):
+        return {"reference": label, "held": False,
+                "why": "the reference run did not finish"}
+    if any(got[k] != want[k] for k in got):
+        raise AssertionError(f"{what}: records or tags differ from the JAX "
+                             f"package's digests of {label}: {got} vs "
+                             f"{want}")
+    return {"reference": label, "held": True, **got}
+
+
 def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
-                   env=None) -> dict:
-    """One input through the CLI's main() with graphs off, then on: VCF
-    bytes, phased-BAM payload and sorted HP/PS tags equal, the launch
-    census (counts and shapes) equal, graph replays only with graphs on,
-    and both kernels launched inside graphs there; the peak of allocated
-    device memory of each run above what was allocated before it. Returns
-    the two runs' numbers and (launches, shapes) of the run with graphs."""
+                   env=None, reference=None) -> dict:
+    """One input through the CLI's main() with the device program off, then
+    on: VCF bytes, phased-BAM payload and sorted HP/PS tags equal (and
+    equal to the JAX package's digests of ``reference``), the launch census
+    (counts and shapes) equal; with the program on, program launches, no
+    host flag read, as many set-condition launches (the device's count) as
+    the program-off run's host flag reads, one build per distinct shape,
+    and both kernels
+    launched through the programs' runs; the peak of allocated device
+    memory of each run above what was allocated before it. Returns the two
+    runs' numbers and (launches, shapes) of the run with the program."""
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import graphs as G
 
     legs = {}
     for on in (False, True):
         G.ENABLED = on
+        G.reset_builds()
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -2555,10 +2953,14 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
                     "peak_device_bytes": torch.cuda.max_memory_allocated()
                     - held,
                     "shapes": _launched_shapes(f"graphs {label} {on}"),
-                    "graphs": dict(CK.GRAPHS),
+                    "programs": _program_counts(),
+                    "programs_cached_after_run": G.cached(),
                     "graph_launches": dict(CK.GRAPH_LAUNCHES),
                     "census": _census(out.stage_seconds),
                     **_phase_times(wall, out)}
+        if reference is not None:
+            legs[on]["reference"] = _hold_to_reference(
+                f"graphs {label} {on}", reference, prefix)
     a, b = legs[False], legs[True]
     _must_equal(f"graphs {label}: off vs on", _payloads(a["prefix"]),
                 _payloads(b["prefix"]))
@@ -2570,13 +2972,17 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
                              f"{a['launches']} vs on {b['launches']}, draws "
                              f"{DRAW_RUNS[f'graphs_{label}_off']} vs "
                              f"{DRAW_RUNS[f'graphs_{label}_on']}")
-    if a["graphs"]["replays"] or not b["graphs"]["replays"] or not all(
-            b["graph_launches"][n] > 0 and b["launches"][n] > 0
-            for n in KERNEL_NAMES):
-        raise AssertionError(f"graphs {label}: replays off "
-                             f"{a['graphs']}, on {b['graphs']}, kernels "
-                             f"in graphs {b['graph_launches']}")
-    res = {("graphs_on" if on else "graphs_off"):
+    pa, pb = a["programs"], b["programs"]
+    if pa["launches"] or pa["builds"] or not pa["flag_reads"] \
+            or not pb["launches"] or pb["flag_reads"] \
+            or pb["condition_sets"] != pa["flag_reads"] \
+            or pb["builds"] != pb["distinct_shapes"] \
+            or b["programs_cached_after_run"] or not pb["body_runs"] \
+            or not all(b["graph_launches"][n] > 0 and b["launches"][n] > 0
+                       for n in KERNEL_NAMES):
+        raise AssertionError(f"graphs {label}: programs off {pa}, on {pb}, "
+                             f"kernels in programs {b['graph_launches']}")
+    res = {("program_on" if on else "program_off"):
            {k: v for k, v in leg.items() if k not in ("prefix", "shapes")}
            for on, leg in legs.items()}
     res["equal"] = True
@@ -2584,17 +2990,22 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
 
 
 def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
-    """The perturbation schedule as CUDA graphs against the same steps
-    launched eagerly (phasing/graphs.py; graphs.ENABLED off, then on):
-    first each wrapper alone under capture (``_graph_nodes``); then the
-    deep input through the CLI at the default waves and as one wave of 4,
-    one deep region through phase_region, and the stream input resident
-    with 8 threads, each leg byte-equal with the census equal, with the
-    graph replays, captures and capture seconds, region_phase, phase_fused
-    and wall of both runs, and the device's idle share over one bucket's
-    schedule of the leg's shapes (the deep bucket of 4, a default wave of
-    2, the region's own schedule, the first wave of 5 of the stream's
-    first contig). Returns (launch counts, launch shapes) by run."""
+    """The phase programs as device programs (phasing/graphs.py: CUDA graphs
+    with conditional WHILE nodes, csrc/graph_program.cu) against the plain
+    executor of the same pieces (graphs.ENABLED off, then on): first each
+    wrapper alone under capture (``_graph_nodes``) and the set-condition
+    kernel against its plain version (``_set_condition``); then the deep
+    input through the CLI at the default waves and as one wave of 4 and
+    the stream input resident with 8 threads, each leg byte-equal, equal
+    to the JAX package's digests, with the census equal, no host flag read
+    and one build per shape with the program on; beside each leg
+    batched_perturbation_phase (the staged chain's schedule) of a bucket of
+    its shapes (a default wave of 2, the deep bucket of 4, a stream wave of
+    5) with the program off and on, equal; one deep region through
+    phase_region; the wall from launch to sync and the device's idle share
+    of one bucket's fused phase (the deep bucket of 4) and of the region's
+    schedule, each after a first call that builds its program. Returns
+    (launch counts, launch shapes) by run."""
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import graphs as G
     from longcallr_tpu_torch.phasing import optimize as O
@@ -2606,20 +3017,24 @@ def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
 
     bam, fa = deep_input
     sbam, sfa = stream_input[:2]
-    res = {"capture": _graph_nodes(dev)}
+    res = {"capture": _graph_nodes(dev), "set_condition": SET_CONDITION}
     runs = {}
-    deep = _deep_bucket(dev, deep_input)
     one_wave = {"LONGCALLR_WAVE_CELLS": str(1 << 40)}
-    for label, args, env, sched in (
-            ("deep", (bam, fa, ()), None, _bucket_schedule(dev, deep, 2)),
-            ("deep_one_wave", (bam, fa, ()), one_wave,
+    deep = _deep_bucket(dev, deep_input, blocks=True)
+    for label, args, env, ref, sched in (
+            ("deep", (bam, fa, ()), None, "deep",
+             _bucket_schedule(dev, deep, 2)),
+            ("deep_one_wave", (bam, fa, ()), one_wave, "deep_one_wave",
              _bucket_schedule(dev, deep)),
             ("stream_resident", (sbam, sfa, ("--no-stream", "-t", "8")),
-             None, _bucket_schedule(dev, _deep_bucket(
+             None, "stream", _bucket_schedule(dev, _deep_bucket(
                  dev, (sbam, sfa), contig="chr1", n=5)))):
         res[label], runs[f"graphs_{label}"] = _graphs_cli_ab(
-            tmp, label, *args, env=env)
-        res[label]["schedule"] = _schedule_ab(label, sched)
+            tmp, label, *args, env=env, reference=ref)
+        res[label]["schedule"] = _schedule_ab(f"{label} schedule", sched,
+                                              traced=False)
+    res["fused_bucket"] = _schedule_ab("fused bucket", _bucket_fused(
+        dev, deep))
     del deep
 
     # one deep region through phase_region, and its schedule alone
@@ -2641,26 +3056,29 @@ def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
             G.ENABLED = True
         legs[on] = {"state": st, "launches": dict(CK.LAUNCHES),
                     "shapes": _launched_shapes(f"graphs region {on}"),
-                    "graphs": dict(CK.GRAPHS),
+                    "programs": dict(CK.GRAPHS),
                     "graph_launches": dict(CK.GRAPH_LAUNCHES),
                     "wall_seconds": wall}
     a, b = legs[False], legs[True]
     if not all(np.array_equal(x, y) for x, y in zip(a["state"], b["state"])):
         raise AssertionError("graphs region: phase_region differs")
     if (a["launches"], a["shapes"]) != (b["launches"], b["shapes"]) or \
-            not b["graphs"]["replays"] or a["graphs"]["replays"] or \
+            not b["programs"]["launches"] or a["programs"]["launches"] or \
+            b["programs"]["flag_reads"] or b["programs"]["condition_sets"] \
+            != a["programs"]["flag_reads"] or \
             not all(b["graph_launches"][n] > 0 for n in KERNEL_NAMES):
         raise AssertionError(f"graphs region: census off {a['launches']}, "
-                             f"on {b['launches']}, graphs {b['graphs']}")
+                             f"on {b['launches']}, programs {b['programs']}")
     runs["graphs_region"] = (b["launches"], b["shapes"])
-    _, K, I_pad, n_rounds, sargs = _region_schedule(dev, deep_input)
+    *_, sargs = _region_schedule(dev, deep_input)
     res["region"] = {
         "region": str(reg), "equal": True,
-        **{("graphs_on" if on else "graphs_off"):
+        **{("program_on" if on else "program_off"):
            {k: v for k, v in leg.items() if k not in ("state", "shapes")}
            for on, leg in legs.items()},
         "schedule": _schedule_ab("region", lambda: O.perturbation_phase(
             *sargs))}
+    res["programs_freed"] = G.free_all()
     _emit("graphs", card, **res)
     return runs
 
@@ -2764,6 +3182,24 @@ def main() -> int:
               if run != "deep_batched"})
     k["shapes"] = d
     k["checked_at_launched_shapes"] = draws_launched_at
+    kernels.append(k)
+    # the set-condition kernel of the device programs' WHILE nodes: its
+    # launches on the default batched deep run; its time is the kernel's
+    # own where torch.profiler traced it, else a loop turn's
+    sc = stats["set_condition"]
+    traced = sc["kernel_ms_traced"] is not None
+    k = {"name": "set_condition", "route": "cuda",
+         "source": "longcallr_tpu_torch/csrc/graph_program.cu",
+         "replaces": "longcallr_tpu/phasing/optimize.py:232",
+         "launches": PROGRAM_RUNS["deep_batched"]["condition_sets"],
+         "max_abs_err": sc["max_abs_err"],
+         "ms": sc["kernel_ms_traced"] if traced else sc["ms"],
+         "ms_by": "torch.profiler, the kernel" if traced else
+         "CUDA events, a loop turn", "turn_ms": sc["ms"],
+         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
+         "bound_by": sc["bound_by"], "library_ms": None}
+    k.update({f"launches_{run}": r["condition_sets"]
+              for run, r in PROGRAM_RUNS.items() if run != "deep_batched"})
     kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,5 @@
-"""The perturbation schedule as CUDA graphs against the same steps launched
-eagerly, on one card.
+"""The perturbation schedule as a device program (CUDA graphs) against the
+same pieces launched eagerly, on one card.
 
     python3 experiments/torch_graphs_ab.py [out.json] [--on-only]
 
@@ -98,7 +98,6 @@ def _chunk_graph(dev, bucket, n: int = 100) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from longcallr_tpu_torch.parallel import mesh as M
-    from longcallr_tpu_torch.phasing import graphs as G
     from longcallr_tpu_torch.phasing import optimize as O
 
     batch, states, _, _ = bucket
@@ -119,25 +118,31 @@ def _chunk_graph(dev, bucket, n: int = 100) -> dict:
 
     res = {}
     for graphs_on in (False, True):
-        G.ENABLED = graphs_on
-        try:
-            run = G.Runner(dev)
-            for _ in range(3):
-                run("chunk", chunk)
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
+        run = chunk
+        if graphs_on:
+            chunk()             # eager first: loads the kernels
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                graph.capture_begin(capture_error_mode="thread_local")
+                chunk()
+                graph.capture_end()
+            run = graph.replay
+        for _ in range(3):
+            run()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(n):
+            run()
+        b.record()
+        b.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                run()
             torch.cuda.synchronize()
-            a.record()
-            for _ in range(n):
-                run("chunk", chunk)
-            b.record()
-            b.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    run("chunk", chunk)
-                torch.cuda.synchronize()
-        finally:
-            G.ENABLED = True
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         res["graphs_on" if graphs_on else "graphs_off"] = {
@@ -151,7 +156,8 @@ def _chunk_graph(dev, bucket, n: int = 100) -> dict:
 def _host_split(run) -> dict:
     """One call of ``run`` with graphs on, no profiler, its host time cut
     by the clock: inside the runner's step calls (replays, and the first
-    calls and captures), inside its flag reads (the wait for the device
+    calls and captures) or the device program's launch (its sync
+    included), inside host flag reads (the wait for the device
     included), inside the set-up's round draws (``cuda_draws.round_draws``,
     a launch on the card; in a checkout that draws on the host,
     ``rng.predraw_rounds``, the copy to the card not included), inside
@@ -172,9 +178,15 @@ def _host_split(run) -> dict:
         draws = (importlib.import_module("longcallr_tpu_torch.phasing.rng"),
                  "predraw_rounds")
     spent = {"steps": 0.0, "flag_reads": 0.0, "draws": 0.0, "tables": 0.0}
-    patched = [(G.Runner, "__call__", "steps"), (G.Runner, "flag",
-                                                 "flag_reads"),
-               (*draws, "draws"), (O, "_fast_tables_for", "tables")]
+    # a checkout with graphs.Runner (steps replayed, flags read on the
+    # host), or with graphs.Program (one launch and one sync a call)
+    if hasattr(G, "Runner"):
+        steps = [(G.Runner, "__call__", "steps"),
+                 (G.Runner, "flag", "flag_reads")]
+    else:
+        steps = [(G.Program, "launch", "steps"),
+                 (G, "_read_flag", "flag_reads")]
+    patched = steps + [(*draws, "draws"), (O, "_fast_tables_for", "tables")]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patched]
 
     def timed(key, fn):

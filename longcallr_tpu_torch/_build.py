@@ -66,6 +66,20 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.round_draws.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.graph_kernel_nodes.restype = i
     lib.graph_kernel_nodes.argtypes = [vp, ctypes.POINTER(i)]
+    pp, ull = ctypes.POINTER(vp), ctypes.c_ulonglong
+    for name, args in (
+            ("gp_graph_create", [i, pp]),
+            ("gp_add_child", [vp, vp, vp, pp]),
+            ("gp_handle_create", [vp, ctypes.POINTER(ull)]),
+            ("gp_add_set", [vp, vp, ull, vp, vp, vp, pp]),
+            ("gp_add_while", [vp, vp, ull, pp, pp]),
+            ("gp_instantiate", [vp, i, pp]),
+            ("gp_launch", [vp, i, vp]),
+            ("gp_destroy", [vp, vp]),
+            ("gp_stamp", [vp, vp, vp, ctypes.c_uint])):
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = args
 
 
 def _check_build(cmd, returncode: int, stderr: str) -> None:

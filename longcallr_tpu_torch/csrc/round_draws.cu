@@ -76,13 +76,15 @@ __device__ __forceinline__ double unit_interval(uint2 b) {
 
 // keys: int64 [B, 2], the uint32 words of each region's key in the low 32
 // bits; rg: f64 [R, B, I]; fl: f64 [R, B, K]. Grid (ceil((I + K) / kThreads),
-// R, B): block (x, t, b) writes elements x·kThreads … of row (t, b) of rg
-// then fl, taken as one row of I + K.
+// rounds, keys) from round t0 and key b0 on: block (x, y, z) writes elements
+// x·kThreads … of row (t0 + y, b0 + z) of rg then fl, taken as one row of
+// I + K.
 __global__ void __launch_bounds__(kThreads)
 round_draws_kernel(const long long* __restrict__ keys, double* __restrict__ rg,
-                   double* __restrict__ fl, int B, int I, int K) {
+                   double* __restrict__ fl, int B, int I, int K, int t0,
+                   int b0) {
   __shared__ uint2 sub[2];
-  const int t = blockIdx.y, b = blockIdx.z;
+  const int t = t0 + blockIdx.y, b = b0 + blockIdx.z;
   if (threadIdx.x < 2) {
     const uint2 key = make_uint2((uint32_t)keys[2 * b], (uint32_t)keys[2 * b + 1]);
     const uint2 kr = threefry2x32(key, make_uint2(0u, (uint32_t)t));
@@ -120,21 +122,28 @@ struct OnDevice {
 extern "C" {
 
 // keys: int64 [B, 2] contiguous (the uint32 words of each key); rg: f64
-// [R, B, I] and fl: f64 [R, B, K], contiguous. R and B at most 65,535 (the
-// grid's second and third dimension); nothing is launched where R, B or
-// I + K is 0.
+// [R, B, I] and fl: f64 [R, B, K], contiguous. Rounds lie on the grid's
+// second dimension and keys on its third, 65,535 a launch: more of either
+// go in as many launches on the stream, each value computed as in one.
+// Nothing is launched where R, B or I + K is 0.
 int round_draws(const long long* keys, double* rg, double* fl, int B, int R,
                 int I, int K, int device, void* stream) {
-  if (B < 0 || R < 0 || I < 0 || K < 0 || B > kGridYZMax || R > kGridYZMax)
-    return (int)cudaErrorInvalidValue;
+  if (B < 0 || R < 0 || I < 0 || K < 0) return (int)cudaErrorInvalidValue;
   if (!B || !R || !(I + K)) return (int)cudaSuccess;
   OnDevice on(device);
   const long long blocks = ((long long)I + K + kThreads - 1) / kThreads;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)blocks, R, B);
-  round_draws_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(keys, rg, fl,
-                                                                  B, I, K);
-  return (int)cudaGetLastError();
+  for (int t0 = 0; t0 < R; t0 += kGridYZMax) {
+    for (int b0 = 0; b0 < B; b0 += kGridYZMax) {
+      dim3 grid((unsigned)blocks, min(R - t0, kGridYZMax),
+                min(B - b0, kGridYZMax));
+      round_draws_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+          keys, rg, fl, B, I, K, t0, b0);
+      cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+  }
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

@@ -10,9 +10,11 @@ step and both hand-kernel matvecs (``cuda_kernels``, one table per member)
 take the whole bucket in one launch, and an ascent is the masked loop of
 ``optimize._ascend`` — each member freezes when its own continue flag
 drops, the loop ends when the last one has, with one host read of the
-flag per chunk of trips for the whole bucket; the perturbation schedule
-runs as CUDA graphs on the card (``optimize._run_schedule``,
-``phasing/graphs.py``). A member's result never depends on its bucket-mates:
+flag per chunk of trips for the whole bucket. The fused phase
+(``batched_phase_fused``) and the perturbation schedule are device programs
+on the card (``phasing/graphs.py``), built once per shape: their loops, the
+ascents' included, run on the device. A member's result never depends on
+its bucket-mates:
 its tables, its random draws (``keys``, one threefry key per region) and
 its round count are its own.
 
@@ -53,8 +55,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..phasing import cuda_draws as CD
 from ..phasing import cuda_kernels as CK
+from ..phasing import graphs
 from ..phasing import kernels_fast as KF
 from ..phasing import optimize as O
 from ..phasing.kernels import (TIE_TOL, CellTables, CompactCells, expand_cells,
@@ -489,67 +491,84 @@ def _round_counts(n_rounds) -> np.ndarray:
     return np.asarray(n_rounds, np.int64).reshape(-1)
 
 
+def _bucket_values(batch: BatchedRegions, n_rounds, keys,
+                   n_loop: Optional[int]) -> Tuple[dict, int]:
+    """A bucket program's inputs (the compact cells, masks, round counts,
+    keys, and the rounds its loop runs: the most of any member, or
+    ``n_loop`` where that is more) and that loop's length."""
+    B = batch.p.shape[0]
+    rounds = _round_counts(n_rounds)
+    if rounds.shape[0] != B or len(keys) != B:
+        raise ValueError(f"{B} regions need {B} round counts and keys, got "
+                         f"{rounds.shape[0]} and {len(keys)}")
+    loop = int(rounds.max()) if B else 0
+    if n_loop is not None:
+        loop = max(loop, int(n_loop))
+    words = np.asarray(keys, np.uint32).astype(np.int64).reshape(B, 2)
+    values = dict(p=batch.p, q=batch.q, read_base=batch.read_base,
+                  site_mask=batch.site_mask, conserved=batch.conserved,
+                  rounds=torch.as_tensor(rounds), keys=torch.as_tensor(words),
+                  n_loop=torch.tensor(loop, dtype=torch.int64))
+    return values, loop
+
+
 def _batched_perturbation_impl(batch: BatchedRegions, best_sigma, best_delta,
                                best_eta, best_prob, n_rounds,
                                keys: Sequence[np.ndarray], with_iters: bool,
-                               split: bool, fts=None,
-                               n_loop: Optional[int] = None):
-    """Shared body of batched_perturbation_phase and its _stats variant.
-    ``fts``: prebuilt tables (batched_phase_fused shares one build across
-    ascent, flip and schedule — valid because the active-read mask they
-    bake in is σ-sign-invariant, so the values are those of a rebuild).
-    ``n_loop``: the rounds the loop runs (default: the most of any member;
-    a row of a mesh runs the whole bucket's). With ``with_iters`` the
-    trips of each ascent call (2 a round) are returned as a list after the
-    state."""
+                               split: bool, n_loop: Optional[int] = None):
+    """Shared body of batched_perturbation_phase and its _stats variant: one
+    device program (``graphs.run``) of the table build, every round's draws
+    and the schedule's loop. ``n_loop``: the rounds the loop runs (default:
+    the most of any member; a row of a mesh runs the whole bucket's). With
+    ``with_iters`` the trips of each ascent call (2 a round) are returned as
+    a list after the state."""
     if with_iters and not O.USE_FAST_KERNELS:
         raise RuntimeError("iteration accounting needs the fast-kernel ascent")
     B, K = best_sigma.shape
     I = best_delta.shape[1]
     dev = best_sigma.device
-    rounds = _round_counts(n_rounds)
-    if rounds.shape[0] != B or len(keys) != B:
-        raise ValueError(f"{B} regions need {B} round counts and keys, got "
-                         f"{rounds.shape[0]} and {len(keys)}")
-    max_rounds = int(rounds.max()) if B else 0
-    if n_loop is not None:
-        max_rounds = max(max_rounds, int(n_loop))
-    rb, sm, cons = batch.read_base, batch.site_mask, batch.conserved
+    values, loop = _bucket_values(batch, n_rounds, keys, n_loop)
+    values.update(best_sigma=best_sigma, best_delta=best_delta,
+                  best_eta=best_eta,
+                  best_prob=O._as_value(best_prob, f64).reshape(B))
+    cap = max(O._draw_rounds(I), loop)
 
-    # the ascent tables are built once, outside the round loop: the
-    # active-read set is schedule-invariant (σ only flips sign)
-    if O.USE_FAST_KERNELS:
-        if fts is None:
-            fts = _tables(batch, best_sigma, split)
-        steps = O._fast_steps(fts, rb, best_sigma, sm, cons, False, False,
-                              split)
-    else:
-        steps = O._spec_steps(expand_cells(batch.cells), rb, sm, cons, False,
-                              False)
+    def make():
+        z, inputs = O._schedule_namespace(values, (B,), K, I, cap, dev)
 
-    # every round's randoms of every region, drawn up front on the device
-    # in one launch from the regions' own keys at the padded sizes: (t, b)
-    # draws are those of fold_in(keys[b], t) → split → uniform, whatever
-    # the bucket holds. The JAX package draws R_max = I // 4 + 1 rounds; the
-    # loop reads the first max_rounds, which are the same bits drawn alone
-    R_max = I // 4 + 1
-    if max_rounds > R_max:
-        raise ValueError(f"{max_rounds} rounds exceed the {R_max} drawn for "
-                         f"I = {I}")
-    rg_all, fl_all = CD.round_draws(CD.key_words(keys, dev).reshape(B, 2),
-                                    max_rounds, I, K)
-    # the schedule runs the bucket's loop on the device (optimize.
-    # _run_schedule); a member past its rounds keeps its state
-    b_st, b_p, trips = O._run_schedule(
-        steps, PhaseState(best_sigma, best_delta, best_eta),
-        torch.as_tensor(best_prob, dtype=f64, device=dev), rb, rg_all,
-        fl_all, max_rounds, torch.as_tensor(rounds, device=dev),
-        O.USE_FAST_KERNELS)
-    out = (b_st.sigma, b_st.delta, b_st.eta, b_p)
+        def prologue():
+            # the ascent tables are built once for the whole schedule: the
+            # active-read set is schedule-invariant (σ only flips sign)
+            b = BatchedRegions(z.p, z.q, z.read_base, z.site_mask,
+                               z.conserved)
+            if O.USE_FAST_KERNELS:
+                z.steps = O._fast_steps(_tables(b, z.best_sigma, split),
+                                        z.read_base, z.best_sigma,
+                                        z.site_mask, z.conserved, False,
+                                        False, split)
+            else:
+                z.steps = O._spec_steps(expand_cells(b.cells), z.read_base,
+                                        z.site_mask, z.conserved, False,
+                                        False)
+            # every round's randoms of every region, drawn on the device in
+            # one launch from the regions' own keys at the padded sizes:
+            # (t, b) draws are those of fold_in(keys[b], t) → split →
+            # uniform, whatever the bucket holds
+            O._schedule_start(z, PhaseState(z.best_sigma, z.best_delta,
+                                            z.best_eta), z.best_prob)
+
+        nodes = ((graphs.Piece("start", prologue),)
+                 + O._schedule_loop(z, z.rounds))
+        return graphs.Program(dev, inputs, nodes, (*z.best, z.prob, z.trips))
+
+    kind = ("bucket_schedule", split, O.USE_FAST_KERNELS, O.ASCENT_CHUNK, cap)
+    sg, dl, et, prob, trips = graphs.run(kind, dev, make, values,
+                                         capture=O.USE_FAST_KERNELS)
+    out = (sg, dl, et, prob)
     # every trip of a bucket's ascent moves all B members' tables: the
     # trips of the slowest member of each ascent call (2 a round) are the
     # unit of the accounting, copied back once
-    return out + (trips.reshape(-1).tolist(),) if with_iters else out
+    return out + (trips[:loop].reshape(-1).tolist(),) if with_iters else out
 
 
 def _bucket_loop(n_rounds) -> int:
@@ -711,26 +730,68 @@ def batched_phase_fused(batch: BatchedRegions, sigma0, delta0, eta0,
 def _phase_fused(batch: BatchedRegions, sigma0, delta0, eta0, block_id,
                  n_rounds, keys, n_loop: int):
     """batched_phase_fused on one device, its schedule running ``n_loop``
-    rounds."""
-    # one build serves all three stages: the active-read mask it bakes in
-    # (read_base & σ≠0) is σ-sign-invariant across the whole sequence
-    fts = _tables(batch, sigma0, True)
-    st1, prob1, _ = O._cross_optimize_fast_loop_it(
-        None, PhaseState(sigma0, delta0, eta0), batch.read_base,
-        batch.site_mask, batch.conserved, False, True, True, ft=fts)
-    sg2, dl2, prob2, margins = _flip_and_score(fts, batch, st1.sigma,
-                                               st1.delta, st1.eta, block_id)
-    # keep-best, tie-quantized like the staged chain's host comparison:
-    # when no block flips, prob2 re-scores the same state, and an
-    # unquantized > would resolve by summation-order rounding
-    better = prob2 > prob1 + TIE_TOL
-    best_sg = torch.where(better[:, None], sg2, st1.sigma)
-    best_dl = torch.where(better[:, None], dl2, st1.delta)
-    best_pr = torch.where(better, prob2, prob1)
-    sgf, dlf, etf, prf = _batched_perturbation_impl(
-        batch, best_sg, best_dl, st1.eta, best_pr, n_rounds, keys, False,
-        True, fts=fts, n_loop=n_loop)
-    return sgf, dlf, etf, prf, margins
+    rounds: one device program (``graphs.run``) of the table build, the
+    first ascent, the block flip and keep-best, the draws and the
+    schedule's loop."""
+    B, K = sigma0.shape
+    I = delta0.shape[1]
+    dev = sigma0.device
+    values, loop = _bucket_values(batch, n_rounds, keys, n_loop)
+    values.update(sigma0=sigma0, delta0=delta0, eta0=eta0, block_id=block_id)
+    cap = max(O._draw_rounds(I), loop)
+
+    def make():
+        z, inputs = O._schedule_namespace(values, (B,), K, I, cap, dev)
+        st1 = PhaseState(*(torch.zeros_like(a) for a in z.best))
+        active1 = torch.zeros(B, dtype=torch.bool, device=dev)
+        count1 = torch.zeros((), dtype=torch.int64, device=dev)
+        margins = torch.zeros(B, dtype=f64, device=dev)
+
+        def tables():
+            # one build serves every stage: the active-read mask it bakes
+            # in (read_base & σ≠0) is σ-sign-invariant across the sequence
+            z.batch = BatchedRegions(z.p, z.q, z.read_base, z.site_mask,
+                                     z.conserved)
+            z.fts = _tables(z.batch, z.sigma0, True)
+            z.steps1 = O._fast_steps(z.fts, z.read_base, z.sigma0,
+                                     z.site_mask, z.conserved, False, True,
+                                     True)
+            z.steps = O._fast_steps(z.fts, z.read_base, z.sigma0,
+                                    z.site_mask, z.conserved, False, False,
+                                    True)
+            # the first ascent (keep_conserved, phase.rs:1132)
+            O._assign(st1, PhaseState(z.sigma0, z.delta0, z.eta0))
+            active1.fill_(True)
+            count1.zero_()
+            ascend1()
+
+        def ascend1():
+            z.more.copy_(O._trips(st1, active1, count1, z.steps1[0],
+                                  z.steps1[1], O.ASCENT_CHUNK))
+
+        def flip():
+            prob1 = z.steps1[2](st1)
+            sg2, dl2, prob2, mg = _flip_and_score(
+                z.fts, z.batch, st1.sigma, st1.delta, st1.eta, z.block_id)
+            margins.copy_(mg)
+            # keep-best, tie-quantized like the staged chain's host
+            # comparison: when no block flips, prob2 re-scores the same
+            # state, and an unquantized > would resolve by summation-order
+            # rounding
+            better = prob2 > prob1 + TIE_TOL
+            O._schedule_start(
+                z, PhaseState(torch.where(better[:, None], sg2, st1.sigma),
+                              torch.where(better[:, None], dl2, st1.delta),
+                              st1.eta), torch.where(better, prob2, prob1))
+
+        nodes = ((graphs.Piece("tables", tables),
+                  graphs.While(z.more, (graphs.Piece("ascent", ascend1),)),
+                  graphs.Piece("blockflip", flip))
+                 + O._schedule_loop(z, z.rounds))
+        return graphs.Program(dev, inputs, nodes, (*z.best, z.prob, margins))
+
+    kind = ("fused", O.ASCENT_CHUNK, cap)
+    return graphs.run(kind, dev, make, values)
 
 
 def enum_tables(batch: BatchedRegions, split: Optional[bool] = None,

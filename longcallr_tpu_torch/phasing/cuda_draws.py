@@ -8,15 +8,17 @@ per region key and round t,
 float64, under ``jax_threefry_partitionable=True``. ``round_draws`` makes
 the same draws for a bucket of keys in one launch of the hand-written kernel
 of ``csrc/round_draws.cu`` (built at first use, see ``_build.py``), round
-first, as ``optimize._run_schedule`` indexes them. ``rng.py`` holds the host
-numpy reference of the same bits.
+first, as ``optimize._schedule_loop`` indexes them. ``rng.py`` holds the
+host numpy reference of the same bits.
 
 The draws are integer work, so the kernel and the plain version agree bit
 for bit. Element i of a draw depends only on i and its key, and round t
 only on t: the first m values of a draw of length n are a draw of length m,
-and the rounds a loop runs are the first ``n_rounds`` of the JAX package's
-``I // 4 + 1``. So a caller draws only the rounds it runs, at the padded
-widths.
+and a caller may draw fewer rounds than the JAX package's ``I // 4 + 1``
+and get the same bits for them. The schedule draws all ``I // 4 + 1`` at
+the padded widths, as the JAX package does, and reads round t's draws at
+min(t, I // 4): a round past them reuses the last, as JAX's clamped
+dynamic index does.
 
 The plain version computes the hashes in int64 tensors masked to 32 bits:
 torch's uint32 has no shifts on the CPU.
@@ -25,8 +27,11 @@ torch's uint32 has no shifts on the CPU.
 counted), ``DRAW_LAUNCHES_BY_ROW`` the same per row of a regions mesh, for
 the row that ``cuda_kernels.set_launch_row`` named for the launching thread,
 and ``DRAW_LAUNCH_SHAPES`` holds the (keys, rounds, I, K) of the launches.
-``cuda_kernels.reset_launches`` clears all three. The draws are made before the
-schedule's CUDA graphs are captured and are not launched under capture.
+``cuda_kernels.reset_launches`` clears all three. The schedule's device
+program (``phasing/graphs.py``) draws into buffers of its own (``out=``)
+inside its first piece: under capture a launch is recorded, as the matvec
+wrappers' are (``cuda_kernels.recording``), and counted at every run of the
+program.
 """
 
 from __future__ import annotations
@@ -54,13 +59,23 @@ def reset_draw_launches() -> None:
         DRAW_LAUNCH_SHAPES.clear()
 
 
-def _count(shape: Tuple[int, int, int, int]) -> None:
+def add_draw_launches(shape: Tuple[int, int, int, int], n: int = 1) -> None:
+    """Count ``n`` launches at ``shape`` for this thread's row (the caller
+    holds ``cuda_kernels._count_lock``)."""
     row = getattr(CK._launch_row, "index", None)
+    DRAW_LAUNCHES["round_draws"] += n
+    DRAW_LAUNCH_SHAPES.add(shape)
+    if row is not None:
+        DRAW_LAUNCHES_BY_ROW[row] = DRAW_LAUNCHES_BY_ROW.get(row, 0) + n
+
+
+def _count(shape: Tuple[int, int, int, int], device_index: int) -> None:
+    rec = getattr(CK._recorded, "launches", None)
+    if rec is not None:
+        rec.append(("round_draws", shape, device_index))
+        return
     with CK._count_lock:
-        DRAW_LAUNCHES["round_draws"] += 1
-        DRAW_LAUNCH_SHAPES.add(shape)
-        if row is not None:
-            DRAW_LAUNCHES_BY_ROW[row] = DRAW_LAUNCHES_BY_ROW.get(row, 0) + 1
+        add_draw_launches(shape)
 
 
 def _threefry(k0, k1, x0, x1):
@@ -119,29 +134,48 @@ def round_draws_plain(keys: torch.Tensor, n_rounds: int, I: int, K: int
     return rg, fl
 
 
-def round_draws(keys: torch.Tensor, n_rounds: int, I: int, K: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _out(out, shapes, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The result tensors: new ones, or ``out`` checked against them."""
+    if out is None:
+        return tuple(torch.empty(s, dtype=torch.float64, device=dev)
+                     for s in shapes)
+    for o, s in zip(out, shapes):
+        if (o.dtype is not torch.float64 or tuple(o.shape) != s
+                or o.device != dev or not o.is_contiguous()):
+            raise ValueError(f"out must be contiguous float64 {s} on {dev}, "
+                             f"got {o.dtype} {tuple(o.shape)} on {o.device}")
+    return tuple(out)
+
+
+def round_draws(keys: torch.Tensor, n_rounds: int, I: int, K: int,
+                out=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The first ``n_rounds`` rounds of the schedule's draws for each key:
     keys int64 [B, 2] (the uint32 words of ``rng.prng_key``, one key per
     region) → (rg [R, B, I], fl [R, B, K]) float64, R = n_rounds; keys [2]
-    → ([R, I], [R, K]). On a CPU tensor the plain version; on a CUDA
-    tensor one launch of the kernel on the current stream, or an error."""
+    → ([R, I], [R, K]). ``out``: the two result tensors to write (a device
+    program's buffers). On a CPU tensor the plain version; on a CUDA tensor
+    the kernel on the current stream (one launch as a rule; more keys or
+    rounds than a grid dimension holds take more), or an error."""
     n_rounds, I, K = int(n_rounds), int(I), int(K)
-    if keys.device.type == "cpu":
-        return round_draws_plain(keys, n_rounds, I, K)
     _check(keys, n_rounds, I, K)
+    B = keys.shape[0] if keys.dim() == 2 else 1
+    lead = (n_rounds, B) if keys.dim() == 2 else (n_rounds,)
+    if keys.device.type == "cpu":
+        if out is None:
+            return round_draws_plain(keys, n_rounds, I, K)
+        rg, fl = _out(out, (lead + (I,), lead + (K,)), keys.device)
+        for o, v in zip((rg, fl), round_draws_plain(keys, n_rounds, I, K)):
+            o.copy_(v)
+        return rg, fl
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
     dev = CK._cuda_device(keys)
-    B = keys.shape[0] if keys.dim() == 2 else 1
-    lead = (n_rounds, B) if keys.dim() == 2 else (n_rounds,)
-    rg = torch.empty(lead + (I,), dtype=torch.float64, device=dev)
-    fl = torch.empty(lead + (K,), dtype=torch.float64, device=dev)
+    rg, fl = _out(out, (lead + (I,), lead + (K,)), dev)
     if n_rounds and B and I + K:
         from .._build import load
         err = load().round_draws(keys.data_ptr(), rg.data_ptr(), fl.data_ptr(),
                                  B, n_rounds, I, K, dev.index, CK._stream(dev))
         if err != 0:
             raise RuntimeError(f"round_draws launch failed: cudaError {err}")
-        _count((B, n_rounds, I, K))
+        _count((B, n_rounds, I, K), dev.index)
     return rg, fl

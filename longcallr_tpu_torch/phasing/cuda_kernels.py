@@ -57,16 +57,23 @@ where the rows repeat one card. ``reset_launches`` clears all four, the
 graph counters below and the round draws' counts (``cuda_draws``).
 
 Under CUDA graph capture (``phasing/graphs.py``) a wrapper's launch becomes
-a node of the graph and runs only when the graph is replayed: the capture
-records each launch instead of counting it (``recording``), and each replay
-adds the recorded launches to the four counts, for the row of the thread
-that replays (``count_replay``). So a run counts the same launches with
-graphs as without. ``GRAPHS`` counts the replays, the captures and the
-seconds the captures took, ``GRAPH_LAUNCHES`` the launches that replays
-added. A capture's cols workspace (it runs on a stream
-of its own) is taken out of ``_WORKSPACES`` afterwards and kept by its
-graph (``take_workspaces``): a later call that grows the workspace of that
-stream would otherwise free memory that the graph writes at every replay.
+a node of a piece of a device program and runs only when the program runs,
+as many times as the loop that holds the piece turns: the capture records
+each launch instead of counting it (``recording``), and after a program's
+run the host adds each piece's recorded launches times the runs of that
+piece, read from the device once with the outputs, for the row of the
+thread that ran the program (``count_runs``). So a run counts the same
+launches with the program as without. ``GRAPHS`` counts the program
+launches, builds, piece captures, the seconds the captures and the
+instantiations took, the device bytes the built programs hold, the
+programs freed beyond the budget, the body runs of their loops, the
+launches of the set-condition kernel (the device's own count) and the host
+reads of a loop flag (the plain executor's; a program makes none),
+``GRAPH_LAUNCHES`` the launches that
+program runs added. A capture's cols workspace (it runs on a stream of its
+own) is taken out of ``_WORKSPACES`` afterwards and kept by its program
+(``take_workspaces``): a later call that grows the workspace of that stream
+would otherwise free memory that the program writes at every run.
 """
 
 from __future__ import annotations
@@ -83,9 +90,16 @@ LAUNCH_SHAPES: Dict[str, Set[Tuple[int, int, int, int]]] = {
     "dual_matvec_rows": set(), "matvec_cols": set()}
 LAUNCHES_BY_DEVICE: Dict[int, Dict[str, int]] = {}
 LAUNCHES_BY_ROW: Dict[int, Dict[str, int]] = {}
-# CUDA graphs of the phase programs: replays, captures, capture seconds;
-# and the launches that replays added to LAUNCHES
-GRAPHS = {"replays": 0, "captures": 0, "capture_seconds": 0.0}
+# device programs of the phase (phasing/graphs.py): launches, builds, piece
+# captures and their seconds, instantiation seconds, device bytes held,
+# programs freed beyond the budget, loop body runs, launches of the
+# set-condition kernel, host reads of a loop flag; and the launches that
+# program runs added to LAUNCHES
+_GRAPHS_ZERO = {"launches": 0, "builds": 0, "captures": 0,
+                "capture_seconds": 0.0, "instantiate_seconds": 0.0,
+                "bytes_held": 0, "evicted": 0, "body_runs": 0,
+                "condition_sets": 0, "flag_reads": 0}
+GRAPHS = dict(_GRAPHS_ZERO)
 GRAPH_LAUNCHES = {"dual_matvec_rows": 0, "matvec_cols": 0}
 _count_lock = threading.Lock()
 # the mesh row on whose behalf a thread launches (None: no row), and the
@@ -132,7 +146,7 @@ def reset_launches() -> None:
             LAUNCH_SHAPES[k].clear()
         LAUNCHES_BY_DEVICE.clear()
         LAUNCHES_BY_ROW.clear()
-        GRAPHS.update(replays=0, captures=0, capture_seconds=0.0)
+        GRAPHS.update(_GRAPHS_ZERO)
         for k in GRAPH_LAUNCHES:
             GRAPH_LAUNCHES[k] = 0
     reset_draw_launches()
@@ -156,18 +170,23 @@ def _count(name: str, hi: torch.Tensor, g: int, device_index: int) -> None:
     _add([(name, shape, device_index)])
 
 
-def _add(launches) -> None:
-    """Count ``launches`` ((name, shape, device index) each) for this
-    thread's row."""
+def _add(launches, n: int = 1) -> None:
+    """Count ``launches`` ((name, shape, device index) each; the round
+    draws' go to ``cuda_draws``) ``n`` times for this thread's row."""
+    from .cuda_draws import add_draw_launches
+
     row = getattr(_launch_row, "index", None)
     with _count_lock:
         for name, shape, device_index in launches:
-            LAUNCHES[name] += 1
+            if name not in LAUNCHES:
+                add_draw_launches(shape, n)
+                continue
+            LAUNCHES[name] += n
             LAUNCH_SHAPES[name].add(shape)
             for table, key in ((LAUNCHES_BY_DEVICE, device_index),
                                (LAUNCHES_BY_ROW, row)):
                 if key is not None:
-                    table.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += 1
+                    table.setdefault(key, dict.fromkeys(LAUNCHES, 0))[name] += n
 
 
 @contextlib.contextmanager
@@ -182,19 +201,23 @@ def recording():
         _recorded.launches = None
 
 
-def count_replay(launches) -> None:
-    """One replay of a graph whose capture recorded ``launches``."""
-    _add(launches)
+def count_runs(launches, n: int) -> None:
+    """``n`` runs, inside a device program, of a piece whose capture
+    recorded ``launches``."""
+    if n <= 0:
+        return
+    _add(launches, n)
     with _count_lock:
-        GRAPHS["replays"] += 1
         for name, _, _ in launches:
-            GRAPH_LAUNCHES[name] += 1
+            if name in GRAPH_LAUNCHES:
+                GRAPH_LAUNCHES[name] += n
 
 
-def count_capture(seconds: float) -> None:
+def count_graphs(**amounts) -> None:
+    """Add ``amounts`` to the ``GRAPHS`` counters of the same names."""
     with _count_lock:
-        GRAPHS["captures"] += 1
-        GRAPHS["capture_seconds"] += seconds
+        for k, v in amounts.items():
+            GRAPHS[k] += v
 
 
 def _widen(hi, lo, lead: int) -> torch.Tensor:

@@ -85,8 +85,19 @@ class CompactCells(NamedTuple):
         return self.p.cpu().numpy(), self.q.cpu().numpy()
 
 
+_TABLES_ON: dict = {}
+
+
 def _table(t_np: _np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(t_np, dtype=f64, device=device)
+    """A module table on ``device``, copied there once (a device
+    program's capture may not copy from the host)."""
+    device = torch.device(device)
+    key = (id(t_np), device.type, device.index)
+    t = _TABLES_ON.get(key)
+    if t is None:
+        t = _TABLES_ON.setdefault(key, torch.as_tensor(t_np, dtype=f64,
+                                                       device=device))
+    return t
 
 
 def capped_q(q: torch.Tensor) -> torch.Tensor:

@@ -44,7 +44,7 @@ import torch
 from . import cuda_kernels as CK
 from .kernels import (LOG10_1MERR_T, LOG10_ERR_T, PRIOR_HOMREF_LOG,
                       PRIOR_HOMVAR_LOG, TIE_TOL, _LOG10_HALF, _PRIOR_HET_BASE,
-                      CellTables, capped_q, f64)
+                      CellTables, _table, capped_q, f64)
 
 f32 = torch.float32
 
@@ -186,6 +186,29 @@ with _np.errstate(invalid="ignore"):
     _DIFF_LO_NP = (_DIFF_NP - _DIFF_HI_NP.astype(_np.float64)).astype(_np.float32)
 
 
+_DIFF_ON: dict = {}
+
+
+def _diff_tables(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The split diff tables on ``dev``, copied there once (a device
+    program's capture may not copy from the host)."""
+    key = (dev.type, dev.index)
+    tabs = _DIFF_ON.get(key)
+    if tabs is None:
+        tabs = _DIFF_ON.setdefault(key, (
+            torch.as_tensor(_DIFF_HI_NP, device=dev),
+            torch.as_tensor(_DIFF_LO_NP, device=dev)))
+    return tabs
+
+
+def constants_on(dev: torch.device) -> None:
+    """Copy the emission tables to ``dev`` now, outside any piece of a
+    device program (whose capture may not copy from the host)."""
+    _diff_tables(dev)
+    for t in (LOG10_ERR_T, LOG10_1MERR_T):
+        _table(t, dev)
+
+
 def _chunks(n: int) -> int:
     c = min(F32_CHUNK, n)
     while n % c:          # shapes are power-of-two padded; guard odd callers
@@ -229,8 +252,9 @@ def fast_tables32_from_compact(cc, read_mask, site_mask) -> FastTables32:
     m = site_mask[..., None, :] & exists
     ms = m & read_mask[..., :, None]
     qi = capped_q(q8)
-    dif_hi = torch.as_tensor(_DIFF_HI_NP, device=dev)[qi]
-    dif_lo = torch.as_tensor(_DIFF_LO_NP, device=dev)[qi]
+    hi_t, lo_t = _diff_tables(dev)
+    dif_hi = hi_t[qi]
+    dif_lo = lo_t[qi]
     p32 = p8.to(f32)
     zero = torch.zeros((), dtype=f32, device=dev)
     dp_hi = torch.where(m, dif_hi * p32, zero)

@@ -10,9 +10,10 @@ one host read of its continue flag per chunk; a batch of ascents (the
 enumeration path's configs, a bucket's regions) runs as one loop in which
 each member freezes when its own flag drops — the semantics of the JAX
 package's vmapped ``while_loop``. The perturbation schedule keeps its state
-in tensors updated in place and runs as three steps that ``graphs.Runner``
-captures as CUDA graphs on the card and replays every round — the
-counterpart of the JAX package's one ``jax.jit`` program.
+in tensors updated in place and is a ``graphs.Program`` of pieces and
+``While`` loops (the rounds, and each ascent's chunks), which the card runs
+as one device program with its loops on the device — the counterpart of
+the JAX package's one ``jax.jit`` program.
 
 Execution modes (the JAX package's knobs): LONGCALLR_FAST_KERNELS=0
 selects the reference-form ascent (the specification); the default
@@ -34,6 +35,7 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Dict, List, NamedTuple, Optional, Set, Tuple
 
 import numpy as np
@@ -403,119 +405,194 @@ def _overall_probability(ct, sigma, delta, eta, read_base, site_mask,
     return overall_probability(ct, sigma, delta, eta, rm, site_mask)
 
 
-def _run_schedule(steps, b_st: PhaseState, b_p, read_base, rg_all, fl_all,
-                  n_loop: int, rounds=None, capture: bool = True):
+def _draw_rounds(I: int) -> int:
+    """The rounds of draws a schedule makes: the JAX package's R_max =
+    I // 4 + 1 at the padded width. A round past them reads the last, as
+    JAX clamps its dynamic index."""
+    return I // 4 + 1
+
+
+def _schedule_namespace(values: Dict[str, torch.Tensor], lead: tuple, K: int,
+                        I: int, cap: int, dev: torch.device):
+    """A schedule program's tensors on ``dev``, on a namespace ``z``: a
+    buffer for every input value (by its name), the best and the current
+    state, the best prob, the ascent's continue flags and trip count, the
+    round index ``t``, the flags "a round awaits its second keep-best"
+    (``pending``), "an ascent goes on" (``more``) and "a round comes"
+    (``go``), the trips of each ascent ([cap, 2]) and every round's draws.
+    The emission tables go to ``dev`` too (``kernels_fast.constants_on``).
+    Returns (z, the input buffers by name)."""
+    z = SimpleNamespace()
+    inputs = {}
+    for k, v in values.items():
+        inputs[k] = torch.empty(tuple(v.shape), dtype=v.dtype, device=dev)
+        setattr(z, k, inputs[k])
+    R = _draw_rounds(I)
+    e = lambda shape, dt=f64: torch.zeros(shape, dtype=dt, device=dev)
+    z.best = PhaseState(e(lead + (K,)), e(lead + (I,)), e(lead + (I,)))
+    z.cur = PhaseState(e(lead + (K,)), e(lead + (I,)), e(lead + (I,)))
+    z.prob = e(lead)
+    z.active = e(lead, torch.bool)
+    z.count = e((), torch.int64)
+    z.t = e(1, torch.int64)
+    z.pending = e((), torch.bool)
+    z.more = e((), torch.bool)
+    z.go = e((), torch.bool)
+    z.trips = e((cap, 2), torch.int64)
+    z.rg = e((R,) + lead + (I,))
+    z.fl = e((R,) + lead + (K,))
+    KF.constants_on(dev)
+    return z, inputs
+
+
+def _schedule_start(z, best: PhaseState, prob) -> None:
+    """The schedule's first step (inside a program's first piece): its
+    state from ``best`` / ``prob``, every round's draws from ``z.keys``,
+    and ``go`` for round 0."""
+    _assign(z.best, best)
+    z.prob.copy_(prob)
+    _assign(z.cur, z.best)
+    z.active.fill_(True)
+    z.count.zero_()
+    z.t.zero_()
+    z.pending.fill_(False)
+    z.trips.zero_()
+    z.go.copy_(z.n_loop > 0)
+    CD.round_draws(z.keys, z.rg.shape[0], z.rg.shape[-1], z.fl.shape[-1],
+                   out=(z.rg, z.fl))
+
+
+def _schedule_loop(z, rounds=None) -> tuple:
     """The perturbation schedule's loop (phase.rs:1198-1233) for one region
-    or a bucket: ``n_loop`` rounds of {δ resets → ascent → keep-best → σ
-    flips → ascent → keep-best}. ``steps``: the ascent's (sigma_step,
-    snp_step, objective) (``_fast_steps``, ``_spec_steps``); ``rg_all`` /
-    ``fl_all``: every round's draws, [R, ..., I] / [R, ..., K], round
-    first; ``rounds`` (bucket only): each member's round count on the
-    device — a member past its count keeps its state.
+    or a bucket, as program nodes over the tensors of ``_schedule_namespace``
+    (read and written in place; the ascent's steps are ``z.steps``,
+    (sigma_step, snp_step, objective), set by the program's first piece):
+    ``z.n_loop`` rounds of {δ resets → ascent → keep-best → σ flips →
+    ascent → keep-best}. ``rounds`` (bucket only): each member's round
+    count on the device — a member past its count keeps its state.
 
-    The state lives in tensors that every step updates in place, and the
-    round index ``t`` lives on the device, so one capture of each of three
-    steps serves every round (``graphs.Runner``; ``capture`` false: eager,
-    the spec path): "open" (the previous round's second keep-best and
-    t + 1, where there is one, then δ resets and ASCENT_CHUNK trips of the
-    first ascent), "flip" (its keep-best, σ flips, ASCENT_CHUNK trips of
-    the second) and "more" (ASCENT_CHUNK more trips, while the flag says an
-    ascent is unfinished): two replays and two flag reads a round where no
-    ascent overruns its chunk. The last round's second keep-best runs
-    once, eagerly. Returns (best state, best prob, the trips of each
-    ascent as an int64 [n_loop, 2] on the device)."""
-    sigma_step, snp_step, objective = steps
-    dev = b_st.sigma.device
-    best = PhaseState(*(a.clone() for a in b_st))
-    prob = b_p.clone()
-    cur = PhaseState(*(a.clone() for a in b_st))
-    active = torch.ones(b_st.sigma.shape[:-1], dtype=torch.bool, device=dev)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    t = torch.zeros(1, dtype=torch.int64, device=dev)
-    # a round whose second ascent awaits its keep-best (none before round 0)
-    pending = torch.zeros((), dtype=torch.bool, device=dev)
-    trips = torch.zeros((max(n_loop, 1), 2), dtype=torch.int64, device=dev)
-    more = torch.zeros((), dtype=torch.bool, device=dev)
-
-    def start(sigma, delta):
-        _assign(cur, PhaseState(sigma, delta, best.eta))
-        active.fill_(True)
-        count.zero_()
+    The round loop and each ascent's loop are ``graphs.While`` loops, so a
+    device program runs them on the device: "open" (the previous round's
+    second keep-best and t + 1, where there is one, then δ resets and
+    ASCENT_CHUNK trips of the first ascent), "flip" (its keep-best, σ flips,
+    ASCENT_CHUNK trips of the second, and ``go`` for the next round) and
+    "more" (ASCENT_CHUNK more trips) while an ascent is unfinished. The
+    last round's second keep-best is "close". Round t reads draw
+    min(t, R - 1), as the JAX package's clamped dynamic index does."""
+    last = z.rg.shape[0] - 1
 
     def climb():
-        more.copy_(_trips(cur, active, count, sigma_step, snp_step,
-                          ASCENT_CHUNK))
+        z.more.copy_(_trips(z.cur, z.active, z.count, z.steps[0],
+                            z.steps[1], ASCENT_CHUNK))
+
+    def start(sigma, delta):
+        _assign(z.cur, PhaseState(sigma, delta, z.best.eta))
+        z.active.fill_(True)
+        z.count.zero_()
 
     def keep(k: int, valid=None):
-        p_new = objective(cur)
-        better = p_new > prob + TIE_TOL
+        p_new = z.steps[2](z.cur)
+        better = p_new > z.prob + TIE_TOL
         if rounds is not None:
-            better = better & (rounds > t)
+            better = better & (rounds > z.t)
         if valid is not None:
             better = better & valid
-        _assign(best, _select(better, cur, best))
-        prob.copy_(torch.where(better, p_new, prob))
-        trips.select(1, k).index_copy_(0, t, count.reshape(1))
+        _assign(z.best, _select(better, z.cur, z.best))
+        z.prob.copy_(torch.where(better, p_new, z.prob))
+        z.trips.select(1, k).index_copy_(0, z.t, z.count.reshape(1))
 
-    def close_round(valid=None):
-        keep(1, valid)
-        t.add_(pending)
+    def close_round():
+        keep(1, z.pending)
+        z.t.add_(z.pending)
+
+    def drawn(draws):
+        return draws.index_select(0, z.t.clamp(max=last)).squeeze(0)
 
     def open_round():
-        close_round(pending)
-        pending.fill_(True)
-        lowv = (t % 2).to(f64) * 2.0 - 1.0         # -1 on even rounds
-        rg = rg_all.index_select(0, t).squeeze(0)
-        start(best.sigma, torch.where(rg < 0.1, lowv,
-                                      torch.where(rg >= 0.9, -lowv,
-                                                  best.delta)))
+        close_round()
+        z.pending.fill_(True)
+        lowv = (z.t % 2).to(f64) * 2.0 - 1.0         # -1 on even rounds
+        rg = drawn(z.rg)
+        start(z.best.sigma, torch.where(rg < 0.1, lowv,
+                                        torch.where(rg >= 0.9, -lowv,
+                                                    z.best.delta)))
         climb()
 
     def flip_reads():
         keep(0)
-        fl = ((fl_all.index_select(0, t).squeeze(0) < 0.1) & read_base
-              & (best.sigma != 0))
-        start(torch.where(fl, -best.sigma, best.sigma), best.delta)
+        fl = (drawn(z.fl) < 0.1) & z.read_base & (z.best.sigma != 0)
+        start(torch.where(fl, -z.best.sigma, z.best.sigma), z.best.delta)
         climb()
+        z.go.copy_((z.t + 1 < z.n_loop).reshape(()))
 
-    run = graphs.Runner(dev, capture)
-    for _ in range(int(n_loop)):
-        for name, step in (("open", open_round), ("flip", flip_reads)):
-            run(name, step)
-            while run.flag(more):
-                run("more", climb)
-    if n_loop:
-        close_round()
-    return best, prob, trips[:n_loop]
+    more = graphs.Piece("more", climb)
+    return (graphs.While(z.go, (graphs.Piece("open", open_round),
+                                graphs.While(z.more, (more,)),
+                                graphs.Piece("flip", flip_reads),
+                                graphs.While(z.more, (more,)))),
+            graphs.Piece("close", close_round))
+
+
+def _as_value(v, dtype) -> torch.Tensor:
+    """A program input as a tensor of ``dtype`` (host data stays on the
+    host until the program copies it)."""
+    if isinstance(v, torch.Tensor):
+        return v if v.dtype is dtype else v.to(dtype)
+    return torch.as_tensor(np.asarray(v), dtype=dtype)
 
 
 def _perturbation_impl(ct, st: PhaseState, best_st: PhaseState, best_prob,
                        read_base, site_mask, conserved, n_rounds: int, key,
                        split: bool, with_iters: bool):
-    """Shared body of perturbation_phase and its _stats variant."""
+    """Shared body of perturbation_phase and its _stats variant: one
+    device program (``graphs.run``) of the table build, the draws and the
+    schedule's loop."""
     if with_iters and not USE_FAST_KERNELS:
         raise RuntimeError("iteration accounting needs the fast-kernel ascent")
     K = st.sigma.shape[0]
     I = st.delta.shape[0]
     dev = st.sigma.device
-    if USE_FAST_KERNELS:
-        ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
-        steps = _fast_steps(ft, read_base, st.sigma, site_mask, conserved,
-                            False, False, split)
-    else:
-        steps = _spec_steps(ct, read_base, site_mask, conserved, False,
-                            False)
-    # the rounds' randoms, drawn on the device in one launch: the first
-    # n_rounds of the JAX package's I // 4 + 1 (the same bits)
     n_rounds = int(n_rounds)
-    if n_rounds > I // 4 + 1:
-        raise ValueError(f"{n_rounds} rounds exceed the {I // 4 + 1} drawn "
-                         f"for I = {I}")
-    rg_all, fl_all = CD.round_draws(CD.key_words(key, dev), n_rounds, I, K)
-    b_st, b_p, trips = _run_schedule(
-        steps, best_st, torch.as_tensor(best_prob, dtype=f64, device=dev),
-        read_base, rg_all, fl_all, n_rounds, capture=USE_FAST_KERNELS)
-    return (b_st, b_p, int(trips.sum())) if with_iters else (b_st, b_p)
+    cap = max(_draw_rounds(I), n_rounds)
+    fields = type(ct)._fields
+    values = {f"cell_{f}": getattr(ct, f) for f in fields}
+    values.update(read_base=read_base, site_mask=site_mask,
+                  conserved=conserved, sigma=st.sigma,
+                  best_sigma=best_st.sigma, best_delta=best_st.delta,
+                  best_eta=best_st.eta,
+                  best_prob=_as_value(best_prob, f64).reshape(()),
+                  keys=_as_value(np.asarray(key, np.uint32).astype(np.int64),
+                                 torch.int64),
+                  n_loop=torch.tensor(n_rounds, dtype=torch.int64))
+
+    def make():
+        z, inputs = _schedule_namespace(values, (), K, I, cap, dev)
+
+        def prologue():
+            cells = type(ct)(*(getattr(z, f"cell_{f}") for f in fields))
+            if USE_FAST_KERNELS:
+                ft = _fast_tables_for(cells, z.read_base, z.sigma,
+                                      z.site_mask, split)
+                z.steps = _fast_steps(ft, z.read_base, z.sigma, z.site_mask,
+                                      z.conserved, False, False, split)
+            else:
+                z.steps = _spec_steps(cells, z.read_base, z.site_mask,
+                                      z.conserved, False, False)
+            _schedule_start(z, PhaseState(z.best_sigma, z.best_delta,
+                                          z.best_eta), z.best_prob)
+
+        nodes = (graphs.Piece("start", prologue),) + _schedule_loop(z)
+        return graphs.Program(dev, inputs, nodes,
+                              (*z.best, z.prob, z.trips))
+
+    kind = ("schedule", type(ct).__name__, split, USE_FAST_KERNELS,
+            ASCENT_CHUNK, cap)
+    sg, dl, et, prob, trips = graphs.run(kind, dev, make, values,
+                                         capture=USE_FAST_KERNELS)
+    b_st = PhaseState(sg, dl, et)
+    if with_iters:
+        return b_st, prob, int(trips[:n_rounds].sum())
+    return b_st, prob
 
 
 def perturbation_phase(ct, st: PhaseState, best_st: PhaseState, best_prob,

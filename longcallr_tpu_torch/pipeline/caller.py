@@ -35,6 +35,7 @@ The pod entry points (N processes, each with a shard of the regions) are in
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import threading
@@ -51,6 +52,7 @@ from ..io.bam import (BamFile, BamWriter, collect_tagged_bytes,
                       tagged_record_indices, write_tagged_records)
 from ..io.fasta import FastaFile
 from ..io.vcf import load_input_candidates, write_vcf_header
+from ..phasing import graphs
 from ..phasing import optimize as _opt
 from ..tiles.regions import Region, extract_isolated_regions_parallel
 from ..utils import device as _device
@@ -330,6 +332,19 @@ def _exon_mask_for(reg: Region, exon_regions: Dict[str, List[Tuple[int, int]]]):
     return np.cumsum(mask[:-1]) > 0
 
 
+def _frees_programs(fn):
+    """A run frees the phase's device programs it built when it ends (as a
+    new run would build them anew; ``phasing/graphs.py``)."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            graphs.free_all()
+    return wrapped
+
+
+@_frees_programs
 def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
         input_vcf: Optional[str] = None, input_region: Optional[str] = None,
         contigs: Optional[Sequence[str]] = None,
@@ -501,6 +516,7 @@ def run(bam_path: str, ref_path: str, output_prefix: str, cfg: CallerConfig,
                          **counters.finish(stage))
 
 
+@_frees_programs
 def run_streaming(bam_path: str, ref_path: str, output_prefix: str,
                   cfg: CallerConfig,
                   contigs: Optional[Sequence[str]] = None,

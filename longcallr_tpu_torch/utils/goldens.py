@@ -6,12 +6,19 @@ under ``tests/golden/preset_*``. This module rebuilds those inputs with the
 same seeds and calls (through ``utils/simulate.py``) and reads the frozen
 outputs back, so that the port can be held to them on the CPU and on a card
 without importing that test module, which imports the JAX caller.
+
+The bench inputs (deep, genome, stream) are held to frozen digests of the
+JAX package's output instead (``tests/golden/reference_digests.json``,
+written by ``experiments/reference_digests.py``): ``digests`` computes the
+same SHA-256s of a run of the port.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -85,3 +92,29 @@ def golden(tag: str) -> Tuple[List[str], List[str]]:
     with open(base + "_tags.tsv") as f:
         tags = f.readlines()
     return recs, tags
+
+
+def digests(vcf_path: str, bam_path: str) -> Dict[str, object]:
+    """SHA-256 of a run's VCF record lines and of its sorted tag lines
+    (``records_and_tags``), and their counts."""
+    records, tags = records_and_tags(vcf_path, bam_path)
+    sha = lambda lines: hashlib.sha256("".join(lines).encode()).hexdigest()
+    return {"records_sha256": sha(records), "tags_sha256": sha(tags),
+            "n_records": len(records), "n_tagged": len(tags)}
+
+
+def reference_digests() -> Dict[str, dict]:
+    """The frozen digests of the JAX package's runs, by input; an input
+    whose reference run did not finish has ``"ok": false``."""
+    with open(os.path.join(GOLDEN_DIR, "reference_digests.json")) as f:
+        return json.load(f)["inputs"]
+
+
+def same_as_reference(label: str, vcf_path: str, bam_path: str) -> bool:
+    """Whether a run of input ``label`` wrote the reference's records and
+    tags (False where they differ; KeyError where no digest exists)."""
+    want = reference_digests()[label]
+    if not want.get("ok"):
+        raise KeyError(f"no reference digest of {label}")
+    got = digests(vcf_path, bam_path)
+    return all(got[k] == want[k] for k in got)

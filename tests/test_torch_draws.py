@@ -114,6 +114,31 @@ def test_one_region_form():
     _bits_equal(fl, want_fl)
 
 
+def test_65536_keys_in_one_call():
+    """65,536 keys with 2 rounds: more keys than the third dimension of a
+    grid holds, which the kernel folds into launches of 65,535; the plain
+    version it is held against on the card computes every key as alone,
+    and writes into given buffers as it returns new ones."""
+    g = np.random.default_rng(4)
+    seeds = [int(v) for v in g.integers(0, np.iinfo(np.int64).max,
+                                        size=65536, dtype=np.int64)]
+    words = _key_words(seeds)
+    rg, fl = CD.round_draws(words, 2, 8, 16)
+    assert rg.shape == (2, 65536, 8) and fl.shape == (2, 65536, 16)
+    for b in (0, 65534, 65535):
+        one_rg, one_fl = CD.round_draws(words[b], 2, 8, 16)
+        assert torch.equal(rg[:, b], one_rg) and torch.equal(fl[:, b], one_fl)
+    want_rg, want_fl = R.predraw_rounds(R.prng_key(seeds[65535]), 16, 8)
+    _bits_equal(rg[:, 65535], want_rg[:2])
+    _bits_equal(fl[:, 65535], want_fl[:2])
+    out = (torch.empty_like(rg), torch.empty_like(fl))
+    got = CD.round_draws(words, 2, 8, 16, out=out)
+    assert got[0] is out[0] and got[1] is out[1]
+    assert torch.equal(out[0], rg) and torch.equal(out[1], fl)
+    with pytest.raises(ValueError, match="out must be"):
+        CD.round_draws(words, 2, 8, 16, out=(rg[:1], fl))
+
+
 def test_cpu_call_counts_no_launch():
     CK.reset_launches()
     CK.set_launch_row(2)
@@ -158,8 +183,8 @@ def _bucket(seed, B, K, I):
 
 def test_bucket_of_mixed_round_counts_below_r_max_matches_jax():
     """A bucket whose members run 2, 5 and 3 rounds of the R_max = 9 that
-    I = 32 allows: the port draws the 5 its loop runs, the JAX package all
-    9; the states are the same."""
+    I = 32 draws: both packages draw all 9 and the loop reads the first 5;
+    the states are the same."""
     B, K, I = 3, 96, 32
     jbatch, state = _bucket(31, B, K, I)
     sg, dl, et, pr = (np.asarray(a) for a in JM.batched_cross_optimize(
@@ -185,8 +210,8 @@ def test_bucket_of_mixed_round_counts_below_r_max_matches_jax():
 
 
 def test_one_region_schedule_of_fewer_rounds_matches_jax():
-    """perturbation_phase of one region with 3 of its R_max = 7 rounds: the
-    port draws 3, the JAX package 7; the best states are the same."""
+    """perturbation_phase of one region with 3 of its R_max = 7 rounds:
+    both packages draw 7 and read 3; the best states are the same."""
     r = np.random.default_rng(41)
     K, I, n_rounds = 96, 24, 3
     p = r.choice([-1, 0, 1], size=(K, I), p=[0.3, 0.4, 0.3]).astype(np.int8)
@@ -216,19 +241,34 @@ def test_one_region_schedule_of_fewer_rounds_matches_jax():
 
 
 def test_rounds_past_the_draws_are_refused():
-    """More rounds than the I // 4 + 1 that the JAX package draws: an
-    error, for one region and for a bucket."""
+    """More rounds than the I // 4 + 1 that the JAX package draws are no
+    longer refused: a round past them reads the last drawn round's draws
+    again, as the JAX package's clamped dynamic index does, for one region
+    and for a bucket (the states equal the JAX package's)."""
     B, K, I = 1, 16, 8
     jbatch, state = _bucket(5, B, K, I)
     tb = adopt_batch(jbatch, CPU)
     sg, dl, et = (torch.as_tensor(a) for a in state)
-    with pytest.raises(ValueError, match="exceed"):
-        TM.batched_perturbation_phase(tb, sg, dl, et,
-                                      torch.zeros(1, dtype=torch.float64),
-                                      np.array([I // 4 + 2]),
-                                      [R.prng_key(1)])
+    n = I // 4 + 2
+    seed = _seeds()[7]
+    got = TM.batched_perturbation_phase(
+        tb, sg, dl, et, torch.zeros(1, dtype=torch.float64), np.array([n]),
+        [R.prng_key(seed)])
+    want = JM.batched_perturbation_phase(
+        jbatch, *map(jnp.asarray, state), jnp.zeros(1),
+        jnp.asarray(np.array([n], np.int32)),
+        jnp.stack([jax.random.PRNGKey(seed)]))
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     st = TO.PhaseState(sg[0], dl[0], et[0])
-    with pytest.raises(ValueError, match="exceed"):
-        TO.perturbation_phase(TK.CompactCells(tb.p[0], tb.q[0]), st, st,
-                              0.0, tb.read_base[0], tb.site_mask[0],
-                              tb.conserved[0], I // 4 + 2, R.prng_key(1))
+    jst = JO.PhaseState(*(jnp.asarray(a[0]) for a in state))
+    tb1, _ = TO.perturbation_phase(TK.CompactCells(tb.p[0], tb.q[0]), st,
+                                   st, 0.0, tb.read_base[0],
+                                   tb.site_mask[0], tb.conserved[0], n,
+                                   R.prng_key(seed))
+    jb1, _ = JO.perturbation_phase(
+        JK.make_cell_tables(np.asarray(jbatch.p[0]), np.asarray(jbatch.q[0])),
+        jst, jst, 0.0, jbatch.read_base[0], jbatch.site_mask[0],
+        jbatch.conserved[0], jnp.int32(n), jax.random.PRNGKey(seed))
+    for g, w in zip(tb1, jb1):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))

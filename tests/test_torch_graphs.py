@@ -1,21 +1,25 @@
-"""The perturbation schedule as capturable steps (phasing/graphs.py) against
-the JAX package's compiled programs, on the CPU.
+"""The phase programs (phasing/graphs.py) against the JAX package's compiled
+programs, on the CPU.
 
 The port runs an ascent in chunks of ``optimize.ASCENT_CHUNK`` masked trips
-with one read of the continue flag per chunk, and the schedule as four
-steps over tensors updated in place (``optimize._run_schedule``), which a
-``graphs.Runner`` captures as CUDA graphs on the card and calls as they are
-on the CPU. Here the CPU form goes through the same seeded numpy inputs as
-the JAX package's ``jax.jit`` programs (``while_loop`` ascents,
-``fori_loop`` schedules, CPU backend, f64): states and trip counts equal,
-objectives to 1e-12 relative (summation order only), for chunks of 1 (every
-ascent overruns its chunk and takes the "more" step), 2 (the default) and
-21 (one chunk holds every trip). A dispatch-mode guard fails on any host
-sync inside a step: what the card could not capture.
+with one read of the continue flag per chunk, and the fused bucket phase and
+the schedule as ``graphs.Program``s: pieces over tensors updated in place
+and ``While`` loops over them (``optimize._schedule_loop``,
+``mesh._phase_fused``), which the card runs as one device program with
+conditional WHILE nodes and the CPU through the plain executor. Here the
+plain executor goes through the same seeded numpy inputs as the JAX
+package's ``jax.jit`` programs (``while_loop`` ascents, ``fori_loop``
+schedules, CPU backend, f64): states and trip counts equal, objectives to
+1e-12 relative (summation order only), for chunks of 1 (every ascent
+overruns its chunk and takes the "more" piece), 2 (the default) and 21 (one
+chunk holds every trip). A dispatch-mode guard fails on any host sync inside
+a piece: what the card could not capture. A stand-in program that "builds"
+and "launches" on the CPU holds the census of the device form (pieces'
+recorded launches times their runs, per row) and the cache of programs by
+shape.
 """
 
 import threading
-from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -76,19 +80,16 @@ class SyncGuard(TorchDispatchMode):
 
 @pytest.fixture
 def guarded(monkeypatch):
-    """Every step a Runner calls runs under SyncGuard; the flag reads
-    between steps (the host's) do not."""
+    """Every piece the plain executor calls runs under SyncGuard; the flag
+    reads between pieces (the host's) do not."""
     steps = []
-    call = graphs.Runner.__call__
 
-    def run(self, name, step):
-        def under_guard():
-            with SyncGuard():
-                step()
-        steps.append(name)
-        return call(self, name, under_guard)
+    def call(self, piece):
+        steps.append(piece.name)
+        with SyncGuard():
+            piece.fn()
 
-    monkeypatch.setattr(graphs.Runner, "__call__", run)
+    monkeypatch.setattr(graphs.Program, "_call", call)
     return steps
 
 
@@ -391,15 +392,15 @@ def test_batched_phase_fused_matches_jax(chunk, guarded, monkeypatch):
 
 def test_spec_loop_schedule_is_not_captured(monkeypatch):
     """LONGCALLR_FAST_KERNELS=0: the schedule takes the chunked ascent of
-    the reference form, and its runner never captures."""
+    the reference form, and its program is never captured."""
     made = []
-    init = graphs.Runner.__init__
+    run = graphs.run
 
-    def spy(self, device, capture=True):
-        init(self, device, capture)
+    def spy(kind, device, make, values, capture=True):
         made.append(capture)
+        return run(kind, device, make, values, capture)
 
-    monkeypatch.setattr(graphs.Runner, "__init__", spy)
+    monkeypatch.setattr(graphs, "run", spy)
     monkeypatch.setattr(TO, "USE_FAST_KERNELS", False)
     monkeypatch.setattr(JO, "USE_FAST_KERNELS", False)
     seed = 42424242
@@ -415,55 +416,149 @@ def test_spec_loop_schedule_is_not_captured(monkeypatch):
     assert made == [False]
 
 
-# --- the runner ------------------------------------------------------------------
+# --- rounds past the drawn ones ---------------------------------------------------
+
+def test_perturbation_phase_past_the_drawn_rounds_matches_jax(chunk):
+    """n_rounds = I // 4 + 3: the JAX package clamps its dynamic index into
+    the I // 4 + 1 rounds it drew, so the last two rounds reuse the last
+    round's draws; the port's program clamps the same way."""
+    seed = 98765
+    jargs, targs = _one_region_schedule(seed=13, K=64, I=16)
+    n = 16 // 4 + 3
+    jb, jp, jit = JO.perturbation_phase_stats(*jargs[:-1], jnp.int32(n),
+                                              jax.random.PRNGKey(seed))
+    tb, tp, tit = TO.perturbation_phase_stats(*targs[:-1], n,
+                                              TR.prng_key(seed))
+    _same(tb, jb)
+    np.testing.assert_allclose(float(tp), float(jp), rtol=RTOL)
+    assert tit == int(jit) >= 2 * n
+
+
+@pytest.mark.parametrize("stats", [False, True], ids=["phase", "stats"])
+def test_batched_perturbation_phase_past_the_drawn_rounds_matches_jax(stats):
+    """One member of a bucket runs I // 4 + 3 rounds, past the I // 4 + 1
+    drawn: it reads the last round's draws again, as the JAX program's
+    clamped index does, and the others keep their state past their
+    counts."""
+    d = _bucket(29)
+    I = d["p"].shape[2]
+    sg, dl, et, pr = _ascended(d)
+    n_rounds = np.array([2, I // 4 + 3, 3])
+    jkeys, tkeys = _keys(3, base=77)
+    jargs = (_jbatch(d), *map(jnp.asarray, (sg, dl, et, pr)),
+             jnp.asarray(n_rounds.astype(np.int32)), jkeys)
+    targs = (adopt_batch(_jbatch(d), torch.device("cpu")),
+             *map(_t, (sg, dl, et, pr)), n_rounds, tkeys)
+    if stats:
+        want = JM.batched_perturbation_phase_stats(*jargs)
+        got = TM.batched_perturbation_phase_stats(*targs)
+        assert int(got[4]) == int(want[4]) > 0
+    else:
+        want = JM.batched_perturbation_phase(*jargs)
+        got = TM.batched_perturbation_phase(*targs)
+    _same(got[:3], want[:3])
+    np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
+                               rtol=RTOL)
+
+
+# --- the program's census and cache --------------------------------------------------
 
 def test_runner_on_the_cpu_calls_each_step():
-    run = graphs.Runner(torch.device("cpu"))
-    assert not run.graphs
+    """The plain executor on the CPU: the pieces in order, a loop's body
+    while its flag (read on the host before each turn) is set, and the body
+    runs of each loop counted."""
     seen = []
-    for _ in range(3):
-        run("step", lambda: seen.append(1))
-    assert seen == [1, 1, 1]
-    assert run.flag(torch.tensor(True)) is True
-    assert run.flag(torch.tensor(False)) is False
+    x = torch.zeros((), dtype=torch.int64)
+    flag = torch.zeros((), dtype=torch.bool)
+
+    def first():
+        seen.append("first")
+        x.zero_()
+        flag.fill_(True)
+
+    def body():
+        seen.append("body")
+        x.add_(1)
+        flag.copy_(x < 3)
+
+    CK.reset_launches()
+    prog = graphs.Program(torch.device("cpu"), {}, (
+        graphs.Piece("first", first),
+        graphs.While(flag, (graphs.Piece("body", body),)),
+        graphs.Piece("last", lambda: seen.append("last"))), (x,))
+    assert prog.run_plain() == [3]
+    assert seen == ["first", "body", "body", "body", "last"]
+    assert int(x) == 3
+    assert CK.GRAPHS["flag_reads"] == 4 and CK.GRAPHS["launches"] == 0
+    runs = prog.piece_runs([3])
+    assert [runs[id(p)] for p in prog.pieces] == [1, 3, 1]
+    CK.reset_launches()
 
 
-class _StandIn(graphs.Runner):
-    """A runner that 'captures' on the CPU: the capture records the
-    wrappers' launches as on the card, and a replay runs nothing."""
+class _StandIn(graphs.Program):
+    """A program that "builds" and "launches" on the CPU: the build records
+    each piece's launches as a capture does, and a launch runs the plain
+    executor with the launches recorded, not counted, so that only the
+    census of the device form counts them."""
 
-    def __init__(self):
-        super().__init__(torch.device("cpu"))
-        self.graphs = True
+    def build(self):
+        for p in self.pieces:
+            with CK.recording() as launches:
+                p.fn()
+            self._captured[id(p)] = (None, launches)
+        return {"capture_seconds": 0.0, "instantiate_seconds": 0.0,
+                "captures": len(self.pieces)}
 
-    def _capture(self, name, step):
-        with CK.recording() as launches:
-            step()
-        self._captured[name] = (SimpleNamespace(replay=lambda: None),
-                                launches, [])
-        CK.count_capture(0.0)
+    def _execute(self):
+        with CK.recording():
+            runs = self.run_plain()
+        # the plain executor reads a flag where the device sets a condition
+        return tuple(o.clone() for o in self.outputs), runs, self.flag_reads
 
 
 def _launch_each():
-    """What a step that calls each wrapper once counts on the card."""
+    """What a piece that calls each wrapper once counts on the card."""
     hi = torch.zeros(2, 8, 4, dtype=torch.float32)
     CK._count("dual_matvec_rows", hi, 1, 0)
     CK._count("matvec_cols", hi, 1, 0)
 
 
+def _counting_program(n: int) -> _StandIn:
+    """A stand-in program of a first piece and a loop whose body runs ``n``
+    times, each piece calling each wrapper once."""
+    i = torch.zeros((), dtype=torch.int64)
+    flag = torch.zeros((), dtype=torch.bool)
+
+    def first():
+        _launch_each()
+        i.zero_()
+        flag.fill_(n > 0)
+
+    def body():
+        _launch_each()
+        i.add_(1)
+        flag.copy_(i < n)
+
+    return _StandIn(torch.device("cpu"), {}, (
+        graphs.Piece("first", first),
+        graphs.While(flag, (graphs.Piece("body", body),))), (i,))
+
+
 @pytest.mark.parametrize("n", [1, 5])
 def test_replays_add_the_captured_launches_for_the_row(n):
+    """A program's run counts each piece's recorded launches times its runs
+    (the first piece once, the body's n times), for the row of the thread
+    that ran it; the build counts nothing."""
     CK.reset_launches()
-    run = _StandIn()
     out = {}
 
     def row():
         CK.set_launch_row(3)
         try:
-            run("step", _launch_each)          # eager first call, capture
-            out["first"] = dict(CK.LAUNCHES)
-            for _ in range(n):
-                run("step", _launch_each)      # replays
+            prog = _counting_program(n)
+            prog.build()
+            out["built"] = dict(CK.LAUNCHES)
+            out["runs"] = prog.launch()[1]
         finally:
             CK.set_launch_row(None)
 
@@ -471,25 +566,31 @@ def test_replays_add_the_captured_launches_for_the_row(n):
     th.start()
     th.join()
     try:
-        assert out["first"] == {"dual_matvec_rows": 1, "matvec_cols": 1}
+        assert out["built"] == {"dual_matvec_rows": 0, "matvec_cols": 0}
+        assert out["runs"] == [n]
         assert CK.LAUNCHES == {"dual_matvec_rows": n + 1,
                                "matvec_cols": n + 1}
         assert CK.LAUNCHES_BY_ROW == {3: dict(CK.LAUNCHES)}
         assert CK.LAUNCHES_BY_DEVICE == {0: dict(CK.LAUNCHES)}
         assert CK.LAUNCH_SHAPES["matvec_cols"] == {(2, 8, 4, 1)}
-        assert CK.GRAPHS["replays"] == n and CK.GRAPHS["captures"] == 1
-        assert CK.GRAPH_LAUNCHES == {"dual_matvec_rows": n,
-                                     "matvec_cols": n}
+        assert CK.GRAPHS["launches"] == 1 and CK.GRAPHS["body_runs"] == n
+        assert CK.GRAPHS["condition_sets"] == n + 1
+        assert CK.GRAPHS["flag_reads"] == n + 1   # the stand-in's own
+        assert CK.GRAPH_LAUNCHES == {"dual_matvec_rows": n + 1,
+                                     "matvec_cols": n + 1}
     finally:
         CK.reset_launches()
-    assert CK.GRAPHS == {"replays": 0, "captures": 0, "capture_seconds": 0.0}
+    assert CK.GRAPHS == {"launches": 0, "builds": 0, "captures": 0,
+                         "capture_seconds": 0.0, "instantiate_seconds": 0.0,
+                         "bytes_held": 0, "evicted": 0, "body_runs": 0,
+                         "condition_sets": 0, "flag_reads": 0}
     assert CK.GRAPH_LAUNCHES == {"dual_matvec_rows": 0, "matvec_cols": 0}
 
 
 def test_replays_from_many_threads_lose_no_count():
-    """Rows of a mesh replay in threads of their own: 16 threads, each its
-    own stand-in runner and row, with a short switch interval; no replay
-    and no launch is lost."""
+    """Rows of a mesh run their programs in threads of their own: 16
+    threads, each its own stand-in program and row, with a short switch
+    interval; no run and no launch is lost."""
     import sys
     CK.reset_launches()
     n_threads, n = 16, 200
@@ -498,9 +599,9 @@ def test_replays_from_many_threads_lose_no_count():
     def row(r):
         try:
             CK.set_launch_row(r)
-            run = _StandIn()
-            for _ in range(n + 1):
-                run("step", _launch_each)
+            prog = _counting_program(n)
+            prog.build()
+            prog.launch()
         except Exception as exc:            # reported below
             errors.append(exc)
         finally:
@@ -518,11 +619,234 @@ def test_replays_from_many_threads_lose_no_count():
         assert not any(th.is_alive() for th in threads) and not errors
         each = {"dual_matvec_rows": n + 1, "matvec_cols": n + 1}
         assert CK.LAUNCHES_BY_ROW == {r: each for r in range(n_threads)}
-        assert CK.GRAPHS["replays"] == n_threads * n
-        assert CK.GRAPHS["captures"] == n_threads
-        assert CK.GRAPH_LAUNCHES == {k: n_threads * n for k in each}
+        assert CK.GRAPHS["launches"] == n_threads
+        assert CK.GRAPHS["body_runs"] == n_threads * n
+        assert CK.GRAPH_LAUNCHES == {k: n_threads * (n + 1) for k in each}
     finally:
         sys.setswitchinterval(interval)
+        CK.reset_launches()
+
+
+def test_body_runs_count_the_chunks_run(chunk, monkeypatch):
+    """The census of a device program counts a piece's launches once per
+    run that the loops' body-run counters give it: on the plain executor,
+    that count equals the calls each piece of the fused bucket phase
+    really got, chunks of trips included."""
+    calls, seen = {}, []
+    call = graphs.Program._call
+    plain = graphs.Program.run_plain
+
+    def counting(self, piece):
+        calls[id(piece)] = calls.get(id(piece), 0) + 1
+        call(self, piece)
+
+    def keep(self):
+        runs = plain(self)
+        seen.append((self, runs))
+        return runs
+
+    monkeypatch.setattr(graphs.Program, "_call", counting)
+    monkeypatch.setattr(graphs.Program, "run_plain", keep)
+    monkeypatch.setattr(TO, "USE_F32_KERNELS", True)
+    d = _bucket(31)
+    I = d["p"].shape[2]
+    jkeys, tkeys = _keys(3, base=9)
+    args = [d[k] for k in ("sg0", "dl0", "et0", "bid")]
+    CK.reset_launches()
+    TM.batched_phase_fused(adopt_batch(_jbatch(d), torch.device("cpu")),
+                           *map(_t, args), np.array([I // 4 + 1, 2, 3]),
+                           tkeys)
+    (prog, runs), = seen
+    # the set-condition kernel stands where the plain executor reads a flag
+    assert prog.condition_sets(runs) == CK.GRAPHS["flag_reads"] == \
+        (1 + runs[0]) + (1 + runs[1]) + 2 * runs[1] + runs[2] + runs[3]
+    CK.reset_launches()
+    names = {p.name: calls.get(id(p), 0) for p in prog.pieces}
+    assert prog.piece_runs(runs) == {id(p): names[p.name]
+                                     for p in prog.pieces}
+    assert names["tables"] == names["blockflip"] == names["close"] == 1
+    assert names["open"] == names["flip"] == I // 4 + 1 == runs[1]
+    # a chunk runs in "tables" (the first ascent's first), in every "open"
+    # and "flip", and once for every turn of an ascent's loop
+    assert names["ascent"] == runs[0]
+    assert names["more"] == runs[2] + runs[3]
+    if chunk == 21:
+        assert names["ascent"] == names["more"] == 0
+
+
+def _standin_device(monkeypatch):
+    """Make graphs.run take its device-program path on the CPU with the
+    stand-in's build and launch."""
+    monkeypatch.setattr(graphs, "_device_program",
+                        lambda device, capture: capture and graphs.ENABLED)
+    monkeypatch.setattr(graphs.Program, "build", _StandIn.build)
+    monkeypatch.setattr(graphs.Program, "_execute", _StandIn._execute)
+    graphs.free_all()
+    graphs.reset_builds()
+
+
+def test_one_build_per_shape_and_its_data_each_call(monkeypatch):
+    """The cache builds one program per shape: a second bucket of the same
+    shape with other data reuses it (its buffers, its pieces) and gets its
+    own result, equal to the plain executor's; another shape builds
+    anew."""
+    _standin_device(monkeypatch)
+    CK.reset_launches()
+    try:
+        got = {}
+        for seed in (41, 43):
+            d = _bucket(seed)
+            sg, dl, et, pr = _ascended(d)
+            _, tkeys = _keys(3, base=seed)
+            targs = (adopt_batch(_jbatch(d), torch.device("cpu")),
+                     *map(_t, (sg, dl, et, pr)), np.array([5, 2, 3]), tkeys)
+            got[seed] = TM.batched_perturbation_phase(*targs)
+            monkeypatch.setattr(graphs, "ENABLED", False)
+            want = TM.batched_perturbation_phase(*targs)
+            monkeypatch.setattr(graphs, "ENABLED", True)
+            _same(got[seed], want)
+        assert len(graphs.BUILDS) == 1 and graphs.cached() == 1
+        assert CK.GRAPHS["builds"] == 1 and CK.GRAPHS["launches"] == 2
+        assert not all(torch.equal(a, b) for a, b in zip(got[41], got[43]))
+        d = _bucket(47, B=2)
+        sg, dl, et, pr = _ascended(d)
+        TM.batched_perturbation_phase(
+            adopt_batch(_jbatch(d), torch.device("cpu")),
+            *map(_t, (sg, dl, et, pr)), np.array([2, 3]), _keys(2, 47)[1])
+        assert len(graphs.BUILDS) == 2 and graphs.cached() == 2
+    finally:
+        graphs.free_all()
+        graphs.reset_builds()
+        CK.reset_launches()
+
+
+def test_the_cache_is_empty_after_a_run(monkeypatch, tmp_path):
+    """caller.run frees every program it built, as a new run would build
+    anew."""
+    from longcallr_tpu_torch.config import preset
+    from longcallr_tpu_torch.pipeline.caller import run
+    from longcallr_tpu_torch.utils.bench_workload import make_deep_workload
+
+    bam, fa = str(tmp_path / "d.bam"), str(tmp_path / "d.fa")
+    make_deep_workload(bam, fa, n_regions=2, region_len=2400,
+                       snp_spacing=120, coverage=20, read_len=600,
+                       err_rate=0.0, gap=3000, seed=7, contig="chrW")
+    _standin_device(monkeypatch)
+    try:
+        run(bam, fa, str(tmp_path / "out"), preset("hifi-masseq"),
+            device=torch.device("cpu"), batched=True)
+        assert graphs.BUILDS and graphs.cached() == 0
+    finally:
+        graphs.free_all()
+        graphs.reset_builds()
+
+
+def _turns(n_max: int = 8):
+    """A stand-in program over the input ``n``: its loop's body adds 1 to
+    a counter until the counter reaches ``n``."""
+    n = torch.zeros((), dtype=torch.int64)
+    x = torch.zeros((), dtype=torch.int64)
+    flag = torch.zeros((), dtype=torch.bool)
+
+    def start():
+        x.zero_()
+        flag.copy_(x < n)
+
+    def turn():
+        x.add_(1)
+        flag.copy_(x < n)
+
+    return _StandIn(torch.device("cpu"), {"n": n}, (
+        graphs.Piece("start", start),
+        graphs.While(flag, (graphs.Piece("turn", turn),))), (x,))
+
+
+def test_a_miscounted_condition_raises():
+    """The device's count of set-condition launches must agree with its
+    body-run counters: a program whose count disagrees raises."""
+    prog = _turns()
+    prog.load({"n": 3})
+    prog.build()
+    real = _StandIn._execute
+
+    def off_by_one(self):
+        outs, runs, sets = real(self)
+        return outs, runs, sets + 1
+
+    prog._execute = off_by_one.__get__(prog)
+    with pytest.raises(RuntimeError, match="set-condition"):
+        prog.launch()
+    CK.reset_launches()
+
+
+def test_threads_of_one_shape_share_its_program(monkeypatch):
+    """Threads that run one shape at once (the rows of a mesh on one card,
+    the per-region loop's workers) take turns on its one program: one
+    build, and each call gets its own data's result."""
+    import sys
+    _standin_device(monkeypatch)
+    CK.reset_launches()
+    got, errors = {}, []
+
+    def call(n):
+        try:
+            got[n] = int(graphs.run(("turns",), torch.device("cpu"), _turns,
+                                    {"n": n})[0])
+        except Exception as exc:            # reported below
+            errors.append(exc)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=call, args=(n,))
+                   for n in range(12)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not errors and got == {n: n for n in range(12)}
+        assert len(graphs.BUILDS) == 1 and graphs.cached() == 1
+        assert CK.GRAPHS["launches"] == 12
+        assert CK.GRAPHS["body_runs"] == sum(range(12))
+        assert graphs.free_all() == 1 and graphs.cached() == 0
+    finally:
+        sys.setswitchinterval(interval)
+        graphs.free_all()
+        graphs.reset_builds()
+        CK.reset_launches()
+
+
+def test_programs_beyond_the_budget_are_freed_oldest_first(monkeypatch):
+    """The programs of a card hold at most the bucket budget: past it, the
+    program used least recently is freed, and its shape builds anew at its
+    next call, with the same result."""
+    _standin_device(monkeypatch)
+    allocated = {"bytes": 0}
+    build = _StandIn.build
+
+    def build_100(self):
+        allocated["bytes"] += 100
+        return build(self)
+
+    monkeypatch.setattr(_StandIn, "build", build_100)
+    monkeypatch.setattr(graphs, "_allocated", lambda d: allocated["bytes"])
+    monkeypatch.setattr(graphs, "_budget", lambda: 250)
+    cpu = torch.device("cpu")
+    CK.reset_launches()
+    try:
+        for kind in ("a", "b", "a", "c"):
+            assert int(graphs.run((kind,), cpu, _turns, {"n": 3})[0]) == 3
+        # a was used after b: b goes when c makes 300 bytes
+        assert CK.GRAPHS["evicted"] == 1 and graphs.cached() == 2
+        assert sorted(k[0] for k in graphs._CACHE) == ["a", "c"]
+        assert [eval(b["key"])[0] for b in graphs.BUILDS] == ["a", "b", "c"]
+        assert int(graphs.run(("b",), cpu, _turns, {"n": 5})[0]) == 5
+        assert [eval(b["key"])[0] for b in graphs.BUILDS] == \
+            ["a", "b", "c", "b"]
+        assert CK.GRAPHS["evicted"] == 2 and graphs.cached() == 2
+    finally:
+        graphs.free_all()
+        graphs.reset_builds()
         CK.reset_launches()
 
 
