@@ -28,7 +28,10 @@ package) and fails on the first check that does not hold:
                batched path chunks it (4 tables of (512, 16), 512 members each)
                and one such region (1 table, 1,024 members), 12 tables of
                (64, 8) with 16 members each and 16 members on one (64, 8)
-               table — each kernel
+               table, and what the transcriptome input of phase 20
+               launches most: 6 tables of (1024, 16) with 128 members
+               each, 1,024 members on one (1024, 16) table and 8 on one
+               (64, 8) table — each kernel
                is timed beside its plain version and
                the one library call that computes the same function
                (torch.matmul / torch.bmm on the f64 tables, the widening
@@ -75,35 +78,47 @@ package) and fails on the first check that does not hold:
                the CLI's main() with --no-batched (the per-region loop);
                launch counts of both kernels and of the round draws are
                reset just before and read just after, and must be > 0;
+               then once more with the device programs off
+               (``_program_off_leg``): the same bytes, tags, launch census
+               and draws, and as many host flag reads as the programs'
+               set-condition launches;
   6. batched — (a) the same input with no --batched flag: it must take the
                batched pipeline, launch both kernels, and write the VCF
                bytes and phased-BAM payload of the per-region run, and
-               launch the round draws; the
+               launch the round draws, and once more with the programs off
+               as in 5; the
                stage counters and the bucket census are printed; (d) the
                genome workload (3 contigs, 8 loci, one 300x locus) batched
                and --no-batched: equal, with the device peak and the bytes
-               its programs held, and batched with a budget of one byte for
+               its programs held, batched with the programs off as in 5,
+               and batched with a budget of one byte for
                the programs held (each freed after its shape's call):
                equal, programs freed; (e) the deep input cut into >= 3
                waves (LONGCALLR_WAVE_CELLS) with the write overlap on:
                equal to (a); (f) the deep input as one wave, its four
                regions in one bucket: equal to (a), with the peak of the
-               device memory; (h) the same with the finalize fan-out on
+               device memory, and with the programs off as in 5; (h) the
+               same with the finalize fan-out on
                (LONGCALLR_FINALIZE_MT_CELLS): equal to (a); (g) twelve
                small loci of four SNPs each, which phase as enumeration
                buckets (regions x configs on the members-per-table form of
                the kernels), batched and --no-batched: equal, and both once
                more in forced split mode, where no region is recomputed in
-               f64: equal; (i) four loci of 6 SNPs and four of 10 SNPs at
-               432 and 510 reads each (tables of (512, 8) with 64 configs,
-               of (512, 16) with 1,024), run the four ways of (g): equal,
-               with at least one enumeration bucket and both kernels
-               launched. Every run that the kernel summary counts must
+               f64: equal, and equal to the JAX package's digests, and
+               batched once more with the programs off as in 5; (i)
+               four loci of 6 SNPs and four of 10 SNPs at 432 and 510 reads
+               each (tables of (512, 8) with 64 configs, of (512, 16) with
+               1,024), run the four ways of (g): equal, equal to its
+               digests, with at least one enumeration bucket and both
+               kernels launched. Every run that the kernel summary counts must
                have launched the kernels only at shapes that phase 2
                checked;
   7. split vs f64 — (c) the deep input with LONGCALLR_F32_KERNELS=0 (f64
                path on the card), batched and --no-batched, each in a
-               fresh process: byte-identical to the split runs;
+               fresh process (both in one): byte-identical to the split
+               runs, device programs run (the staged chain's ascent and
+               schedule) and no loop flag read on the host (the child
+               prints its program counters);
   8. stream  — the stream input of the JAX package's bench (5 contigs x 13
                loci of 40 kb at 120x, SNP spacing 200: 104,000 reads of 3 kb)
                through the CLI's main() with --stream and with --no-stream
@@ -114,7 +129,8 @@ package) and fails on the first check that does not hold:
                tables, one member each), every bucket placed on the card
                at the default thresholds; wall, reads/s, the stream's
                stages, the host RSS peak of each leg and the peak of device
-               memory per contig are printed;
+               memory per contig are printed; the resident leg once more
+               with the programs off as in 5;
   9. resume  — the genome workload through the CLI with --resume, resident
                and --stream: a second run skips every region and launches
                no kernel, a third on a checkpoint cut to its header and
@@ -183,22 +199,21 @@ package) and fails on the first check that does not hold:
                csrc/graph_program.cu) against the plain executor of the same
                pieces (graphs.ENABLED off, then on): each wrapper alone
                under capture gives a graph of one kernel node whose replay
-               equals the eager call bit for bit; the deep input through
-               the CLI at the default waves and as one wave of 4 and the
-               stream input resident with 8 threads: bytes, sorted HP/PS
-               tags and the launch census equal (the round draws' too),
-               equal to the JAX package's digests, and with the program on:
-               program launches, no host flag read, as many set-condition
-               launches (counted on the device) as the program-off run's
-               flag reads, one build per distinct shape, both kernels
-               launched through the programs' runs and no program cached
-               after the run; beside each leg batched_perturbation_phase of
-               a bucket of its shapes (a default wave of 2, the deep bucket
-               of 4, a stream wave of 5), program off and on, equal; one
-               deep region through phase_region the same way; builds,
-               captures, capture and instantiate seconds, device bytes held
-               per program, region_phase, phase_fused, wall and the device
-               peak of each run; the wall from launch to sync of each
+               equals the eager call bit for bit (the CLI runs of the deep
+               input per region, at the default waves and as one wave of
+               4, of the genome, the stream input resident and (g), (i)
+               have their program-off twins in phases 5, 6 and 8: bytes,
+               sorted HP/PS tags, the launch census and the draws equal,
+               the JAX package's digests, no program off, as many host
+               flag reads off as set-condition launches on, and on one
+               build per distinct shape, both kernels launched through the
+               programs and no program cached after the run);
+               batched_perturbation_phase of a bucket of each input's
+               shapes (a default wave of 2, the deep bucket of 4, a stream
+               wave of 5), program off and on, equal; one deep region
+               through phase_region the same way, with builds, captures,
+               capture and instantiate seconds and device bytes held; the
+               wall from launch to sync of each
                schedule above, and with the device's idle share that of one
                bucket's fused phase (the deep bucket of 4) and of the
                region's schedule, program off and on, each after a first
@@ -207,19 +222,43 @@ package) and fails on the first check that does not hold:
                profiler counts every hand kernel that the census counts),
                and its lower bound from the device clock read before and
                after every piece (gp_stamp): the share of the call's span
-               outside the pieces.
+               outside the pieces. Then the ascent program
+               (optimize._ascent) alone, off and on, at the
+               shapes it runs at (equal results and census, set-condition
+               launches on equal to the flag reads off): the staged chain's
+               first ascent of a default wave in f64, one deep region's
+               first ascent, and enumeration chunks of (g), (i) and the
+               transcriptome input (a bucket chunk and a region of 1,024
+               configs alone);
+ 20. transcriptome — (run right after phase 19) a sample's many small genes
+               (utils/goldens.ENUM_INPUTS: 8 contigs of 40 loci of 1.8 to
+               9 kb, a SNP every 900 bp, 15x to 120x of 1.5 kb reads:
+               62,028 reads) through the CLI with 8 threads, batched and
+               --no-batched, program off and on, every problem on the card:
+               bytes equal across the four legs and equal to the JAX
+               package's digests, the
+               census of phase 19's CLI legs, at least 80 % of the regions
+               on the enumeration path; each kernel held against its plain
+               version at every shape these runs launched it at; the three
+               shapes it launched at most are those phase 2 timed (a
+               bucket chunk of 6 regions of (1024, 16) x 128 configs, one
+               such region's 1,024 configs, 8 configs on a (64, 8) table).
 
-The deep input (per region, default waves, one wave), the genome workload
-and the stream input (both legs) are held to the frozen digests of the JAX
-package's output (tests/golden/reference_digests.json,
+Every CLI run with the device programs on whose phase problems all went
+to the card (all but the placement phase's host legs) must read no loop
+flag on the host: every ascent and schedule runs as a device program.
+
+The deep input (per region, default waves, one wave), the genome workload,
+the stream input (both legs) and the enumeration inputs are held to the
+frozen digests of the JAX package's output (tests/golden/reference_digests.json,
 experiments/reference_digests.py) wherever the card runs them through the
 CLI.
 
 Every phase runs with the device programs on (the default) but the off
-legs of phase 19.
+legs of phases 19 and 20.
 
-The goldens of phase 4 and the enumeration workloads of phase 6 run with
-the placement off (everything on the card, as before there was one): at its
+The goldens of phase 4 and the enumeration workloads of phases 6, 19 and 20
+run with the placement off (everything on the card, as before there was one): at its
 default their regions are of host size. Every other run has the default.
 
 Each phase prints one JSON line (``script_seconds``: the script's time when
@@ -236,7 +275,9 @@ deep run, ``launches_per_region`` the per-region one,
 ``launches_stream_resident`` the two legs of phase 8,
 ``launches_pod_2p_p0``, ``launches_pod_2p_p1`` and ``launches_pod_1p_p0``
 the workers of phase 12, ``launches_stats`` phase 15, ``launches_graphs_*``
-the runs with graphs of phase 19, ``launches_mesh``
+the runs with graphs of phase 19, ``launches_transcriptome_*`` those of
+phase 20 (whose three most launched shapes are ``tx_chunk``, ``tx_region``
+and ``tx_small_region`` under ``shapes``), ``launches_mesh``
 (a)'s run on the (2, 1) mesh and ``launches_mesh_*`` the other runs of
 phase 18 (``_cards``: over every card); each timed shape lists
 under ``launched_by`` the runs that launched the kernel there; the entry of
@@ -306,6 +347,13 @@ ENUM_MESH_PAIRS = [(2, 512, 8, False, 64), (2, 512, 16, False, 512)]
 # 12 regions x 16 configs, and one region's 16 configs on the per-region loop
 ENUM_RUN_BUCKET = (12, 64, 8, False, 16)
 ENUM_RUN_REGION = (16, 64, 8, True)
+# what the transcriptome input of phase transcriptome launches most: its
+# bucket chunk of 6 regions of (1024, 16) with 128 configs each, one such
+# region's 1,024 configs alone, and one small region's 8 configs on a
+# (64, 8) table (phase transcriptome checks that its runs launch them)
+TX_CHUNK = (6, 1024, 16, False, 128)
+TX_REGION = (1024, 1024, 16, True)
+TX_SMALL = (8, 64, 8, True)
 # 64 regions of 10 SNPs with at most 8 reads each in one bucket: 65,536
 # members in one launch (checked, not timed)
 ENUM_LIMIT = (64, 8, 16, False, 1024)
@@ -329,14 +377,15 @@ TIMED = {DEEP: "deep", DEEP_BUCKET: "deep_bucket", DEEP_WAVE: "deep_wave",
          ENUM10_BUCKET: "enum10_bucket", ENUM10_REGION: "enum10_region",
          ENUM10_MESH_ROW: "enum10_mesh_row",
          ENUM_RUN_BUCKET: "enum_run_bucket",
-         ENUM_RUN_REGION: "enum_run_region"}
+         ENUM_RUN_REGION: "enum_run_region", TX_CHUNK: "tx_chunk",
+         TX_REGION: "tx_region", TX_SMALL: "tx_small_region"}
 # every shape phase_kernels holds against the plain versions: the main-path
 # shapes first, then unaligned ones
 CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, STREAM_WAVE, STREAM_TAIL,
                   *STREAM_SHARES, ENUM6_BUCKET, ENUM6_REGION,
                   ENUM10_BUCKET, ENUM10_REGION, ENUM10_MESH_ROW,
                   *ENUM_MESH_PAIRS, ENUM_RUN_BUCKET, ENUM_RUN_REGION,
-                  ENUM_LIMIT,
+                  TX_CHUNK, TX_REGION, TX_SMALL, ENUM_LIMIT,
                   (1, 37, 300, False), (1, 1025, 129, False),
                   (1, 513, 700, False), (1, 4096, 510, False),
                   (5, 300, 64, False), (3, 200, 24, False, 5),
@@ -360,18 +409,31 @@ def _launch_key(shape) -> tuple:
     return (B, K, I, shape[4] if len(shape) > 4 else 1)
 
 
-def _launched_shapes(what: str, seen=None) -> dict:
+# the summary stats of phase kernels (max errors by kernel, times by shape),
+# which the later checks and timings add to
+KERNEL_STATS: dict = {}
+# launch shapes held against the plain versions after a run launched them
+# (_check_shapes)
+CHECKED_LATER: set = set()
+
+
+def _launched_shapes(what: str, seen=None, check_at=None) -> dict:
     """The shapes the run just made launched the kernels at, by kernel (or
     ``seen``: those another process reported). Fails if one of them is a
-    shape that phase_kernels did not hold against the plain version."""
+    shape that phase_kernels did not hold against the plain version, or,
+    with ``check_at`` (a card), holds the kernels against their plain
+    versions at each such shape there now (``_check_shapes``)."""
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
 
-    checked = {_launch_key(s) for s in CHECKED_SHAPES}
     if seen is None:
         seen = {n: sorted(CK.LAUNCH_SHAPES[n]) for n in KERNEL_NAMES}
     seen = {n: sorted(tuple(s) for s in seen[n]) for n in KERNEL_NAMES}
     for n, shapes in seen.items():
+        checked = {_launch_key(s) for s in CHECKED_SHAPES} | CHECKED_LATER
         missing = [s for s in shapes if s not in checked]
+        if missing and check_at is not None:
+            _check_shapes(check_at, missing)
+            missing = []
         if missing:
             raise AssertionError(f"{what}: {n} was launched at {missing} "
                                  f"(tables, K, I, members per table), which "
@@ -610,6 +672,7 @@ def _time_device(name, kern, plain, hi, lo, op, flush) -> dict:
     k = lambda: kern(hi, lo, op)
     p = lambda: plain(hi, lo, op)
     t = {"ms": _device_ms(k), "cold_ms": _device_ms(k, flush),
+         "ms_by": DEVICE_TIMER["by"],
          "plain_ms": _device_ms(p), "plain_cold_ms": _device_ms(p, flush),
          "library_ms": _device_ms(lib),
          "library_cold_ms": _device_ms(lib, flush),
@@ -621,6 +684,39 @@ def _time_device(name, kern, plain, hi, lo, op, flush) -> dict:
     t["share_of_bound"] = None if t["warm_in_l2"] else bound_ms / t["ms"]
     t["share_of_bound_cold"] = bound_ms / t["cold_ms"]
     return t
+
+
+def _launch_operands(rng, shape, dev):
+    """Random split tables and operands of one launch shape (tables, K, I,
+    members per table), as the wrappers take them: tables [K,I] for one
+    table, else [tables, K, I]; x [..., I, 2] and σ [..., K] with the
+    members' axes the wrappers infer that shape from."""
+    tables, K, I, g = shape
+    hi, lo = _split_dp(rng, (K, I) if tables == 1 else (tables, K, I), dev)
+    lead = (() if g == 1 else (g,)) if tables == 1 else \
+        ((tables,) if g == 1 else (tables, g))
+    on = lambda a: torch.as_tensor(a, device=dev)
+    x = on(rng.integers(-1, 2, size=lead + (I, 2)).astype(np.float64))
+    s = on(rng.integers(-1, 2, size=lead + (K,)).astype(np.float64))
+    return hi, lo, {"dual_matvec_rows": x, "matvec_cols": s}
+
+
+def _check_shapes(dev, shapes) -> None:
+    """Each kernel against its plain version at launch shapes that a run
+    launched and phase_kernels did not check (random tables and operands,
+    ``_check``'s tolerance); they join CHECKED_LATER."""
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+
+    rng = np.random.default_rng(20261018)
+    kerns = {"dual_matvec_rows": (CK.dual_matvec_rows,
+                                  CK.dual_matvec_rows_plain),
+             "matvec_cols": (CK.matvec_cols, CK.matvec_cols_plain)}
+    for shape in shapes:
+        hi, lo, ops = _launch_operands(rng, tuple(shape), dev)
+        for name, (kern, plain) in kerns.items():
+            _check(name, {"launch_shape": list(shape)}, kern, plain, hi, lo,
+                   ops[name], KERNEL_STATS)
+        CHECKED_LATER.add(tuple(shape))
 
 
 def _members_alone(row, kern, hi, lo, x) -> int:
@@ -842,6 +938,7 @@ def _draws_device_phase(dev, rows: dict, flush) -> None:
         k = lambda: CD.round_draws(kd, n_rounds, I, K)
         bound_ms, bound_by, nbytes, ops = _draws_bound(B, n_rounds, I, K)
         t = {"ms": _device_ms(k), "cold_ms": _device_ms(k, flush),
+             "ms_by": DEVICE_TIMER["by"],
              "plain_ms": _device_ms(
                  lambda: CD.round_draws_plain(kd, n_rounds, I, K), n=5),
              "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1066,6 +1163,7 @@ def phase_kernels(card: str, dev):
         cases.append(res)
 
     threaded = _threads_check(CK, rng, dev)
+    KERNEL_STATS.update(stats)
     _emit("kernels", card, rel_tol=REL_TOL, device_ms_by=DEVICE_TIMER["by"],
           shapes=rows, cols_cases=cases, threaded=threaded, draws=draws,
           draws_65536_keys=many, set_condition=stats["set_condition"])
@@ -1181,9 +1279,8 @@ def _census(stage: dict) -> dict:
 
 def phase_deep(card: str, tmp: str):
     """The deep workload through the CLI's main() on the card, on the
-    per-region loop (--no-batched)."""
-    from longcallr_tpu_torch import cli
-    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    per-region loop (--no-batched), then once more with the device
+    programs off (``_program_off_leg``)."""
     from longcallr_tpu_torch.utils.bench_workload import make_deep_workload
 
     bam = os.path.join(tmp, "deep.bam")
@@ -1191,18 +1288,9 @@ def phase_deep(card: str, tmp: str):
     t0 = time.monotonic()
     params = make_deep_workload(bam, fa)
     gen_s = time.monotonic() - t0
-    prefix = os.path.join(tmp, "deep_split")
-    argv = ["-b", bam, "-f", fa, "-o", prefix, "-p", "hifi-masseq",
-            "--platform", "cuda", "--no-batched"]
-    CK.reset_launches()
-    t0 = time.monotonic()
-    rc = cli.main(argv)
-    wall = time.monotonic() - t0
-    launches = dict(CK.LAUNCHES)
+    prefix, out, launches, wall = _cli_run(tmp, "per_region", bam, fa,
+                                           extra=["--no-batched"])
     draws = _draws_read("per_region", must=True)
-    out = cli.LAST_RUN
-    if rc != 0:
-        raise AssertionError(f"cli.main returned {rc}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
@@ -1214,7 +1302,10 @@ def phase_deep(card: str, tmp: str):
         raise AssertionError("every region needed the f64 rerun")
     reference = _hold_to_reference("deep input, per-region loop", "deep",
                                    prefix)
+    off = _program_off_leg(tmp, "per_region", bam, fa, ["--no-batched"],
+                           None, (prefix, launches, shapes), "deep")
     _emit("deep", card, reads=params["n_reads"], regions=out.n_regions,
+          programs=PROGRAM_RUNS["per_region"], program_off=off,
           placed=_all_on_card("deep input, per-region loop", out),
           records=out.n_records, phased_sites=out.n_phased_sites,
           generate_seconds=gen_s, wall_seconds=wall,
@@ -1244,25 +1335,85 @@ def _environ(env):
 def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
     """One run through the CLI's main() in this process, the launch counts
     set to 0 just before and read just after (the round draws' into
-    DRAW_RUNS[label]). Returns (prefix, CallerOutputs, launches, wall
-    seconds)."""
+    DRAW_RUNS[label], the programs' counters, the distinct shapes built, the
+    programs cached after the run and the launches made through programs
+    into PROGRAM_RUNS[label]).
+    With the device programs on, a run that placed every phase problem on
+    the card must read no loop flag on the host (``_no_flag_reads``).
+    Returns (prefix, CallerOutputs, launches, wall seconds)."""
     from longcallr_tpu_torch import cli
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
 
     prefix = os.path.join(tmp, label)
     argv = ["-b", bam, "-f", fa, "-o", prefix, "-p", "hifi-masseq",
             "--platform", "cuda", *extra]
     with _environ(env):
         CK.reset_launches()
+        G.reset_builds()
         t0 = time.monotonic()
         rc = cli.main(argv)
         wall = time.monotonic() - t0
         launches = dict(CK.LAUNCHES)
-        PROGRAM_RUNS[label] = dict(CK.GRAPHS)
+        PROGRAM_RUNS[label] = {
+            **CK.GRAPHS, "distinct_shapes": len({b["key"] for b in G.BUILDS}),
+            "cached_after_run": G.cached(),
+            "graph_launches": dict(CK.GRAPH_LAUNCHES)}
         _draws_read(label)
     if rc != 0:
         raise AssertionError(f"{label}: cli.main returned {rc}")
+    if G.ENABLED:
+        _no_flag_reads(label, PROGRAM_RUNS[label], _placed(cli.LAST_RUN))
     return prefix, cli.LAST_RUN, launches, wall
+
+
+def _no_flag_reads(label: str, programs: dict, placed: dict) -> None:
+    """A run with the device programs on that placed no phase problem on
+    the host read no loop flag on the host: every ascent and schedule ran
+    as a device program (the giant path's reads-sharded ascent, which no
+    CLI run on one card takes, would count its reads here too)."""
+    if not placed["host"] and programs["flag_reads"]:
+        raise AssertionError(f"{label}: {programs['flag_reads']} host flag "
+                             f"reads with the device programs on")
+
+
+def _program_off_leg(tmp: str, label: str, bam: str, fa: str, extra, env,
+                     on, reference: str, check_at=None) -> dict:
+    """The run ``label`` of _cli_run (``on``: its prefix, launches and
+    launch shapes) once more with the device programs off: the same
+    bytes, tags, launch census and draws, held to the JAX package's
+    digests of ``reference``; no program ran, and its host flag reads
+    equal the set-condition launches the programs made in the run with
+    them (PROGRAM_RUNS[label]). That run must have built one program per
+    distinct shape, freed them all at its end and launched both kernels
+    through them. Returns the off run's numbers."""
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    G.ENABLED = False
+    try:
+        prefix, out, launches, wall = _cli_run(tmp, f"{label}_off", bam, fa,
+                                               extra, env)
+    finally:
+        G.ENABLED = True
+    shapes = _launched_shapes(f"{label}, programs off", check_at=check_at)
+    _must_equal(f"{label}: programs off vs on", _payloads(prefix),
+                _payloads(on[0]))
+    if _records_and_tags(prefix) != _records_and_tags(on[0]):
+        raise AssertionError(f"{label}: records or tags differ off vs on")
+    a, b = PROGRAM_RUNS[f"{label}_off"], PROGRAM_RUNS[label]
+    if (launches, shapes) != tuple(on[1:]) or \
+            DRAW_RUNS[f"{label}_off"] != DRAW_RUNS[label] or \
+            a["launches"] or a["builds"] or not b["condition_sets"] or \
+            a["flag_reads"] != b["condition_sets"] or \
+            b["builds"] != b["distinct_shapes"] or b["cached_after_run"] or \
+            not all(b["graph_launches"][n] > 0 for n in KERNEL_NAMES):
+        raise AssertionError(f"{label}: programs off {a}, launches "
+                             f"{launches}; on {b}, launches {on[1]}")
+    return {"wall_seconds": wall,
+            "region_phase": out.stage_seconds.get("region_phase"),
+            "flag_reads": a["flag_reads"], "equal": True,
+            "reference": _hold_to_reference(f"{label}, programs off",
+                                            reference, prefix)}
 
 
 def _must_equal(what: str, a, b) -> None:
@@ -1319,25 +1470,28 @@ def _forced_split():
         O.USE_F32_KERNELS = saved
 
 
-# the enumeration workload of phase_batched (g) and phase_placement: twelve
-# loci of four SNPs
-ENUM_CONTIGS = [(f"chrE{c}", [(4_000, 40, 900)] * 4) for c in range(3)]
-ENUM_SEED = 20_261_016
+def _enum_input(tmp: str, label: str):
+    """The enumeration input ``label`` of goldens.ENUM_INPUTS ("enum": run
+    (g), twelve loci of four SNPs; "enum_deep": run (i); "transcriptome"):
+    (bam, fasta, the generator's parameters)."""
+    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
+    from longcallr_tpu_torch.utils.goldens import ENUM_INPUTS
+
+    bam = os.path.join(tmp, f"{label}.bam")
+    fa = os.path.join(tmp, f"{label}.fa")
+    return bam, fa, make_genome_workload(bam, fa, **ENUM_INPUTS[label])
 
 
-def _enum_workload(tmp: str, tag: str, label: str, contigs, seed: int):
+def _enum_workload(tmp: str, tag: str, label: str):
     """An enumeration workload four ways: batched and --no-batched, as the
     caller resolves the mode and in forced split mode (where no region is
     recomputed in f64, so the bytes are those of the kernels'
-    members-per-table form). All four must write the same bytes, at least
-    one enumeration bucket must form, and both kernels must be launched, at
-    shapes that phase_kernels checked. Returns (the result for the phase
-    line, [(launches, launch shapes) batched, the same per region])."""
-    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
-
-    ebam = os.path.join(tmp, f"{label}.bam")
-    efa = os.path.join(tmp, f"{label}.fa")
-    eparams = make_genome_workload(ebam, efa, contigs=contigs, seed=seed)
+    members-per-table form). All four must write the same bytes, the JAX
+    package's digests of ``label``, at least one enumeration bucket must
+    form, and both kernels must be launched, at shapes that phase_kernels
+    checked. Returns (the result for the phase line, [(launches, launch
+    shapes) batched, the same per region])."""
+    ebam, efa, eparams = _enum_input(tmp, label)
     np_, nout, nlaunch, nwall = _cli_run(tmp, f"{label}_batched", ebam, efa)
     nshapes = _launched_shapes(f"{tag} enumeration workload, batched")
     np2, nout2, nlaunch2, nwall2 = _cli_run(tmp, f"{label}_per_region", ebam,
@@ -1351,6 +1505,9 @@ def _enum_workload(tmp: str, tag: str, label: str, contigs, seed: int):
             raise AssertionError(f"{tag} kernel {name} was not launched")
     _must_equal(f"{tag} enumeration workload, batched vs --no-batched",
                 _payloads(np_), _payloads(np2))
+    reference = _hold_to_reference(f"{tag} enumeration workload", label, np_)
+    off = _program_off_leg(tmp, f"{label}_batched", ebam, efa, (), None,
+                           (np_, nlaunch, nshapes), label)
     with _forced_split():
         sp, sout, slaunch, _ = _cli_run(tmp, f"{label}_batched_split", ebam,
                                         efa)
@@ -1372,9 +1529,12 @@ def _enum_workload(tmp: str, tag: str, label: str, contigs, seed: int):
     res = {
         "reads": eparams["n_reads"], "regions": nout.n_regions,
         "records": nout.n_records, "equal": True, "census": ncensus,
+        "reference": reference,
         "batched": {"wall_seconds": nwall, "launches": nlaunch,
                     "launch_shapes": nshapes,
-                    "region_phase": nout.stage_seconds.get("region_phase")},
+                    "region_phase": nout.stage_seconds.get("region_phase"),
+                    "programs": PROGRAM_RUNS[f"{label}_batched"]},
+        "batched_program_off": off,
         "per_region": {"wall_seconds": nwall2, "launches": nlaunch2,
                        "launch_shapes": nshapes2,
                        "region_phase":
@@ -1432,6 +1592,8 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     want = _payloads(per_region_out.vcf_path[:-len(".vcf")])
     got = _payloads(prefix)
     _must_equal("(b) batched vs --no-batched, deep input", got, want)
+    a_off = _program_off_leg(tmp, "deep_batched", bam, fa, (), None,
+                             (prefix, launches, shapes), "deep")
     res = {"a_deep_batched": {
         "regions": out.n_regions, "records": out.n_records,
         "wall_seconds": wall, "reads_per_second": n_reads / wall,
@@ -1441,7 +1603,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         "stage_seconds": stage, "split_regions_kept": out.n_split_kept,
         "f64_reruns": out.n_f64_reruns,
         "reference": _hold_to_reference("(a) deep input, batched", "deep",
-                                        prefix)},
+                                        prefix), "program_off": a_off},
         "b_equal_to_per_region": True}
     notes["a"] = _phase_times(wall, out)
 
@@ -1455,6 +1617,10 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     gp, gout, glaunch, gwall = _cli_run(tmp, "genome_batched", gbam, gfa)
     gpeak = torch.cuda.max_memory_allocated() - gheld
     gprograms = _program_counts()
+    cuda = torch.device("cuda", torch.cuda.current_device())
+    gshapes = _launched_shapes("(d) genome workload", check_at=cuda)
+    goff = _program_off_leg(tmp, "genome_batched", gbam, gfa, (), None,
+                            (gp, glaunch, gshapes), "genome", cuda)
     # the same with a budget of one byte for the programs held: every other
     # program is freed after each call (graphs._trim), and the next call of
     # its shape builds it anew
@@ -1484,6 +1650,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                     "census": _census(gout.stage_seconds),
                     "region_phase": gout.stage_seconds.get("region_phase"),
                     "peak_device_bytes": gpeak, "programs": gprograms},
+        "batched_program_off": goff,
         "programs_beyond_a_budget_of_one_byte": {
             "wall_seconds": ewall_, "equal": True, "programs": evicting,
             "region_phase": eout_.stage_seconds.get("region_phase")},
@@ -1523,6 +1690,8 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
         raise AssertionError(f"(f) expected one bucket, got {fcensus}")
     _must_equal("(f) deep input as one wave vs default waves", _payloads(fp),
                 got)
+    f_off = _program_off_leg(tmp, "deep_one_wave", bam, fa, (), one_wave,
+                             (fp, flaunch, fshapes), "deep_one_wave")
     notes["f"] = _phase_times(fwall, fout)
     cells = DEEP_BUCKET[0] * DEEP_BUCKET[1] * DEEP_BUCKET[2]
     res["f_deep_one_wave"] = {"wall_seconds": fwall, "launches": flaunch,
@@ -1534,7 +1703,7 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
                               "reference": _hold_to_reference(
                                   "(f) deep input, one wave",
                                   "deep_one_wave", fp),
-                              "equal": True}
+                              "program_off": f_off, "equal": True}
 
     # (h) the same wave with the finalize of its four regions on threads
     hp, hout, hlaunch, hwall = _cli_run(
@@ -1549,14 +1718,11 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     # (with the placement off: at its default (g)'s bucket and (i)'s 6-SNP
     # regions are of host size; phase_placement runs (g) at the default)
     with _router(0):
-        res["g_enum"], enum_runs = _enum_workload(
-            tmp, "(g)", "enum", ENUM_CONTIGS, ENUM_SEED)
+        res["g_enum"], enum_runs = _enum_workload(tmp, "(g)", "enum")
         # (i) four loci of 6 SNPs and four of 10 SNPs, 432 and 510 reads
         # each: tables of (512, 8) with 64 configs, of (512, 16) with 1,024
         res["i_enum_deep"], enum_deep_runs = _enum_workload(
-            tmp, "(i)", "enum_deep",
-            [("chrF0", [(5_400, 240, 900)] * 4),
-             ("chrF1", [(9_000, 170, 900)] * 4)], 20_261_017)
+            tmp, "(i)", "enum_deep")
     for shape in (ENUM6_BUCKET, ENUM10_BUCKET):
         if list(_launch_key(shape)) not in enum_deep_runs[0][1][
                 "dual_matvec_rows"]:
@@ -1571,33 +1737,62 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
             "enum_deep_per_region": enum_deep_runs[1]}
 
 
+# runs of the CLI in one fresh process (argv: a JSON list of [label, CLI
+# arguments]); after each it prints a line with its label, return code,
+# wall, stage seconds and device programs' counters
+_F64_CLI = """
+import json, sys, time
+from longcallr_tpu_torch import cli
+from longcallr_tpu_torch.phasing import cuda_kernels as CK
+for label, argv in json.loads(sys.argv[1]):
+    CK.reset_launches()
+    t0 = time.monotonic()
+    rc = cli.main(argv)
+    print(json.dumps({"leg": label, "rc": rc,
+                      "wall_seconds": time.monotonic() - t0,
+                      "stage_seconds": cli.LAST_RUN.stage_seconds,
+                      "programs": dict(CK.GRAPHS)}), flush=True)
+"""
+
+
 def phase_split_vs_f64(card: str, tmp: str, bam: str, fa: str,
                        per_region_prefix: str):
     """(c) the deep input with LONGCALLR_F32_KERNELS=0 (f64 on the card),
-    each run in a fresh process: the batched pipeline, and the per-region
-    loop (--no-batched), which is also the path every safety-net recompute
-    takes. Both must write the bytes of the per-region split run, which
-    the batched split run (a) was held to."""
+    both runs in one fresh process (the mode is read at import): the
+    batched pipeline, and the per-region loop (--no-batched), which is also
+    the path every safety-net recompute takes. Both must write the bytes of
+    the per-region split run, which the batched split run (a) was held to,
+    run their ascents and schedules as device programs (the staged chain's
+    in the batched run) and read no loop flag on the host."""
     env = dict(os.environ, LONGCALLR_F32_KERNELS="0")
     want = _payloads(per_region_prefix)
-    done = {}
-    for label, extra in (("batched", []), ("per_region", ["--no-batched"])):
-        prefix = os.path.join(tmp, f"deep_f64_{label}")
-        t0 = time.monotonic()
-        res = subprocess.run(
-            [sys.executable, "-m", "longcallr_tpu_torch.cli", "-b", bam,
-             "-f", fa, "-o", prefix, "-p", "hifi-masseq", "--platform",
-             "cuda", *extra],
-            cwd=HERE, env=env, capture_output=True, text=True, timeout=900)
-        wall = time.monotonic() - t0
-        if res.returncode != 0:
-            raise AssertionError(f"f64 run ({label}) failed "
-                                 f"({res.returncode}):\n{res.stderr[-3000:]}")
-        _must_equal(f"(c) split vs f64, {label}", _payloads(prefix), want)
-        done[label] = {"byte_equal": True, "wall_seconds": wall,
-                       "stages": [l.strip() for l in res.stdout.splitlines()
-                                  if l.strip().startswith(("stage ",
-                                                           "count "))]}
+    legs = [[label, ["-b", bam, "-f", fa, "-o",
+                     os.path.join(tmp, f"deep_f64_{label}"), "-p",
+                     "hifi-masseq", "--platform", "cuda", *extra]]
+            for label, extra in (("batched", []),
+                                 ("per_region", ["--no-batched"]))]
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-c", _F64_CLI, json.dumps(legs)],
+                         cwd=HERE, env=env, capture_output=True, text=True,
+                         timeout=900)
+    reports = [json.loads(l) for l in res.stdout.splitlines()
+               if l.startswith('{"leg"')]
+    if res.returncode != 0 or len(reports) != len(legs) or \
+            any(r["rc"] for r in reports):
+        raise AssertionError(f"f64 runs failed ({res.returncode}):\n"
+                             f"{res.stderr[-3000:]}")
+    done = {"process_seconds": time.monotonic() - t0}
+    for (label, argv), rep in zip(legs, reports):
+        _must_equal(f"(c) split vs f64, {label}", _payloads(argv[5]), want)
+        st = rep["stage_seconds"]
+        placed = {"host": int(st.get("phase_host_placed", 0)),
+                  "card": int(st.get("phase_card_placed", 0))}
+        _no_flag_reads(f"(c) f64, {label}", rep["programs"], placed)
+        if not rep["programs"]["condition_sets"]:
+            raise AssertionError(f"(c) f64, {label}: no device program ran")
+        done[label] = {"byte_equal": True, "placed": placed,
+                       **{k: rep[k] for k in ("wall_seconds", "programs",
+                                              "stage_seconds")}}
     _emit("split_vs_f64", card, **done)
 
 
@@ -1720,6 +1915,10 @@ def phase_stream(card: str, tmp: str, notes: dict):
                 raise AssertionError(f"the device peak grows with the "
                                      f"contigs: {peaks}")
         runs[label] = (prefix, (launches, shapes))
+        if label == "resident":
+            legs[label]["program_off"] = _program_off_leg(
+                tmp, "stream_resident", bam, fa, ["--no-stream", "-t", "8"],
+                None, (prefix, launches, shapes), "stream")
     _must_equal("stream vs resident, stream input",
                 _payloads(runs["stream"][0]), _payloads(runs["resident"][0]))
     for shape in (STREAM_WAVE, STREAM_TAIL):
@@ -1797,7 +1996,6 @@ def phase_placement(card: str, dev, tmp: str) -> None:
     from longcallr_tpu_torch.pipeline.caller import run
     from longcallr_tpu_torch.utils import device as D
     from longcallr_tpu_torch.utils import goldens
-    from longcallr_tpu_torch.utils.bench_workload import make_genome_workload
 
     t0 = time.monotonic()
     res = subprocess.run(
@@ -1814,9 +2012,7 @@ def phase_placement(card: str, dev, tmp: str) -> None:
                                          "host_s")} for r in rows[:-1]]}
 
     settings = (("default", None), ("off", 0), ("all_host", ALL_HOST))
-    ebam = os.path.join(tmp, "enum.bam")
-    efa = os.path.join(tmp, "enum.fa")
-    make_genome_workload(ebam, efa, contigs=ENUM_CONTIGS, seed=ENUM_SEED)
+    ebam, efa, _ = _enum_input(tmp, "enum")
     enum, first = {}, None
     for name, value in settings:
         with _router(value):
@@ -1937,7 +2133,7 @@ print(json.dumps({"worker": int(pid), "rc": rc, "caller_wall_seconds": wall,
                   "launches": dict(CK.LAUNCHES),
                   "launch_shapes": {k: sorted(v) for k, v in
                                     CK.LAUNCH_SHAPES.items()},
-                  "summary": res}), flush=True)
+                  "programs": dict(CK.GRAPHS), "summary": res}), flush=True)
 """
 
 
@@ -1988,6 +2184,9 @@ def _pod(tmp: str, label: str, n: int, bam: str, fa: str, threads: int,
         if rep["rc"] != 0:
             raise AssertionError(f"{label}: process {pid}: cli.main "
                                  f"returned {rep['rc']}")
+        st = rep["summary"].get("stage_seconds") or {}
+        _no_flag_reads(f"{label}: process {pid}", rep["programs"],
+                       {"host": int(st.get("phase_host_placed", 0))})
         reports.append(rep)
     return wall, prefix, reports
 
@@ -2205,7 +2404,7 @@ def _region_schedule(dev, deep_input):
     """The first region of the deep input after its first ascent on the
     card in split mode, as phase_region brings it to the perturbation
     schedule: (region, K, I padded, rounds, the arguments of
-    optimize.perturbation_phase)."""
+    optimize.perturbation_phase, a callable of that first ascent)."""
     from longcallr_tpu_torch.config import preset
     from longcallr_tpu_torch.io.bam import BamFile
     from longcallr_tpu_torch.io.fasta import FastaFile
@@ -2239,15 +2438,16 @@ def _region_schedule(dev, deep_input):
     sigma0 = np.where(rb, np.where(rng.random(K) < 0.5, -1.0, 1.0), 0.0)
     on = lambda a: torch.as_tensor(a, device=dev)
     ct = CompactCells.from_numpy(p8, q8, dev)
-    st1, prob1 = O.cross_optimize(ct, O.PhaseState.from_numpy(
-        sigma0, delta0, eta0, dev), on(rb), on(sm), on(cons), False, True,
-        split=True)
+    st0 = O.PhaseState.from_numpy(sigma0, delta0, eta0, dev)
+    first = lambda: O.cross_optimize(ct, st0, on(rb), on(sm), on(cons),
+                                     False, True, split=True)
+    st1, prob1 = first()
     n_rounds = I0 // 4 + 1
     key = R.prng_key(int(rng.integers(0, np.iinfo(np.int64).max,
                                       dtype=np.int64)))
     args = (ct, st1, st1, prob1, on(rb), on(sm), on(cons), n_rounds, key,
             True)
-    return reg, K, I_pad, n_rounds, args
+    return reg, K, I_pad, n_rounds, args, first
 
 
 def phase_stats(card: str, dev, deep_input) -> dict:
@@ -2258,7 +2458,7 @@ def phase_stats(card: str, dev, deep_input) -> dict:
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import optimize as O
 
-    reg, K, I_pad, n_rounds, args = _region_schedule(dev, deep_input)
+    reg, K, I_pad, n_rounds, args, _ = _region_schedule(dev, deep_input)
     res, walls = {}, {}
     for name, fn in (("plain_schedule", O.perturbation_phase),
                      ("stats", O.perturbation_phase_stats)):
@@ -2354,6 +2554,7 @@ def _mesh_run(tmp: str, label: str, bam: str, fa: str, dev, mesh, extra=(),
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         _draws_read(label)
+        _no_flag_reads(label, dict(CK.GRAPHS), {"host": 0})
     return (prefix, out, dict(CK.LAUNCHES),
             {r: dict(v) for r, v in CK.LAUNCHES_BY_ROW.items()}, wall)
 
@@ -2888,6 +3089,43 @@ def _schedule_ab(what: str, run, traced: bool = True) -> dict:
     return {"program_off": off, "program_on": on}
 
 
+def _enum_chunk(dev, B: int, K: int, I: int, I0: int, C: int, seed: int):
+    """One call of an enumeration chunk on the card in split mode: B
+    planted regions of K reads and I0 SNPs (padded to I), each with the
+    first C of its 2^I0 configs, through batched_enum_cross_optimize; with
+    B = 0 one such region alone through cross_optimize, its C configs over
+    one table (the per-region path). A callable for _idle_share."""
+    from longcallr_tpu_torch.parallel import mesh as M
+    from longcallr_tpu_torch.phasing import optimize as O
+    from longcallr_tpu_torch.phasing.kernels import CompactCells
+
+    rng = np.random.default_rng(seed)
+    n = max(B, 1)
+    hap = rng.choice([-1, 1], size=(n, K, 1))
+    p = hap * rng.choice([-1, 1], size=(n, 1, I))
+    p = np.where(rng.random((n, K, I)) < 0.03, -p, p)
+    p = np.where((rng.random((n, K, I)) < 0.7)
+                 & (np.arange(I) < I0), p, 0).astype(np.int8)
+    q = rng.integers(10, 31, size=(n, K, I)).astype(np.uint8)
+    rb = rng.random((n, K)) < 0.95
+    sm = np.broadcast_to(np.arange(I) < I0, (n, I)).copy()
+    configs = np.pad(O.enumeration_order(I0)[:C].astype(np.float64),
+                     ((0, 0), (0, I - I0)), constant_values=1.0)
+    sig0 = np.where(rb[:, None, :], rng.choice([-1.0, 1.0], size=(n, C, K)),
+                    0.0)
+    on = lambda a: torch.as_tensor(a, device=dev)
+    if B:
+        batch = M.BatchedRegions.from_numpy(p, q, rb, sm, np.zeros_like(sm),
+                                            dev)
+        args = (on(sig0), on(configs), on(np.ones((B, I))))
+        return lambda: M.batched_enum_cross_optimize(batch, *args,
+                                                     split=True)
+    ct = CompactCells.from_numpy(p[0], q[0], dev)
+    st = O.PhaseState(on(sig0[0]), on(configs), on(np.ones((C, I))))
+    masks = (on(rb[0]), on(sm[0]), on(np.zeros(I, bool)))
+    return lambda: O.cross_optimize(ct, st, *masks, True, False, split=True)
+
+
 def _flat(out) -> list:
     return [t for o in out for t in (o if isinstance(o, tuple) else (o,))]
 
@@ -2921,8 +3159,33 @@ def _hold_to_reference(what: str, label: str, prefix: str) -> dict:
     return {"reference": label, "held": True, **got}
 
 
+@contextlib.contextmanager
+def _counting_programs():
+    """Counts the phase programs called inside (graphs.run, any thread) by
+    kind; an ascent whose state has a members' axis (the enumeration
+    configs) counts as "ascent_members"."""
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    calls, lock, real = {}, threading.Lock(), G.run
+
+    def run(kind, device, make, values, capture=True):
+        name = kind[0]
+        if name == "ascent" and \
+                values["sigma"].dim() - 1 > values["cell_p"].dim() - 2:
+            name = "ascent_members"
+        with lock:
+            calls[name] = calls.get(name, 0) + 1
+        return real(kind, device, make, values, capture)
+
+    G.run = run
+    try:
+        yield calls
+    finally:
+        G.run = real
+
+
 def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
-                   env=None, reference=None) -> dict:
+                   env=None, reference=None, check_at=None) -> dict:
     """One input through the CLI's main() with the device program off, then
     on: VCF bytes, phased-BAM payload and sorted HP/PS tags equal (and
     equal to the JAX package's digests of ``reference``), the launch census
@@ -2931,8 +3194,11 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
     the program-off run's host flag reads, one build per distinct shape,
     and both kernels
     launched through the programs' runs; the peak of allocated device
-    memory of each run above what was allocated before it. Returns the two
-    runs' numbers and (launches, shapes) of the run with the program."""
+    memory of each run above what was allocated before it, the programs
+    called by kind and the launches at each shape. ``check_at``: a card on
+    which launch shapes that phase_kernels did not check are checked after
+    the run (``_launched_shapes``). Returns the two runs' numbers and
+    (launches, shapes) of the run with the program."""
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import graphs as G
 
@@ -2944,15 +3210,21 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         try:
-            prefix, out, launches, wall = _cli_run(
-                tmp, f"graphs_{label}_{'on' if on else 'off'}", bam, fa,
-                extra, env)
+            with _counting_programs() as calls:
+                prefix, out, launches, wall = _cli_run(
+                    tmp, f"graphs_{label}_{'on' if on else 'off'}", bam, fa,
+                    extra, env)
         finally:
             G.ENABLED = True
         legs[on] = {"prefix": prefix, "launches": launches,
                     "peak_device_bytes": torch.cuda.max_memory_allocated()
                     - held,
-                    "shapes": _launched_shapes(f"graphs {label} {on}"),
+                    "launches_by_shape": [
+                        [n, list(sh), k] for (n, sh), k in
+                        sorted(CK.LAUNCHES_BY_SHAPE.items())],
+                    "program_calls": calls,
+                    "shapes": _launched_shapes(f"graphs {label} {on}",
+                                               check_at=check_at),
                     "programs": _program_counts(),
                     "programs_cached_after_run": G.cached(),
                     "graph_launches": dict(CK.GRAPH_LAUNCHES),
@@ -2994,18 +3266,17 @@ def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
     with conditional WHILE nodes, csrc/graph_program.cu) against the plain
     executor of the same pieces (graphs.ENABLED off, then on): first each
     wrapper alone under capture (``_graph_nodes``) and the set-condition
-    kernel against its plain version (``_set_condition``); then the deep
-    input through the CLI at the default waves and as one wave of 4 and
-    the stream input resident with 8 threads, each leg byte-equal, equal
-    to the JAX package's digests, with the census equal, no host flag read
-    and one build per shape with the program on; beside each leg
+    kernel against its plain version (``_set_condition``); then
     batched_perturbation_phase (the staged chain's schedule) of a bucket of
-    its shapes (a default wave of 2, the deep bucket of 4, a stream wave of
-    5) with the program off and on, equal; one deep region through
+    the deep and stream inputs' shapes (a default wave of 2, the deep
+    bucket of 4, a stream wave of 5) with the program off and on, equal
+    (the CLI runs of those inputs have their program-off twins in phases
+    batched and stream, ``_program_off_leg``); one deep region through
     phase_region; the wall from launch to sync and the device's idle share
     of one bucket's fused phase (the deep bucket of 4) and of the region's
     schedule, each after a first call that builds its program. Returns
     (launch counts, launch shapes) by run."""
+    from longcallr_tpu_torch.parallel import mesh as M
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import graphs as G
     from longcallr_tpu_torch.phasing import optimize as O
@@ -3019,23 +3290,39 @@ def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
     sbam, sfa = stream_input[:2]
     res = {"capture": _graph_nodes(dev), "set_condition": SET_CONDITION}
     runs = {}
-    one_wave = {"LONGCALLR_WAVE_CELLS": str(1 << 40)}
     deep = _deep_bucket(dev, deep_input, blocks=True)
-    for label, args, env, ref, sched in (
-            ("deep", (bam, fa, ()), None, "deep",
-             _bucket_schedule(dev, deep, 2)),
-            ("deep_one_wave", (bam, fa, ()), one_wave, "deep_one_wave",
-             _bucket_schedule(dev, deep)),
-            ("stream_resident", (sbam, sfa, ("--no-stream", "-t", "8")),
-             None, "stream", _bucket_schedule(dev, _deep_bucket(
-                 dev, (sbam, sfa), contig="chr1", n=5)))):
-        res[label], runs[f"graphs_{label}"] = _graphs_cli_ab(
-            tmp, label, *args, env=env, reference=ref)
-        res[label]["schedule"] = _schedule_ab(f"{label} schedule", sched,
-                                              traced=False)
+    for label, sched in (
+            ("deep", _bucket_schedule(dev, deep, 2)),
+            ("deep_one_wave", _bucket_schedule(dev, deep)),
+            ("stream_resident", _bucket_schedule(dev, _deep_bucket(
+                dev, (sbam, sfa), contig="chr1", n=5)))):
+        res[label] = {"schedule": _schedule_ab(f"{label} schedule", sched,
+                                               traced=False)}
     res["fused_bucket"] = _schedule_ab("fused bucket", _bucket_fused(
         dev, deep))
+
+
+    # the ascent program off and on at the shapes it runs at: the staged
+    # chain's first ascent of a default wave in f64 (LONGCALLR_F32_KERNELS=0
+    # takes the staged chain for every bucket), one deep region's first
+    # ascent, and enumeration chunks: run (g)'s bucket of 12 x 16 configs,
+    # run (i)'s 6-SNP bucket (4 x 64) and 10-SNP chunk (4 x 512), the
+    # transcriptome input's most frequent bucket chunk (6 regions of
+    # (1024, 16) x 128 configs) and its region of 1,024 configs alone
+    wave, states = _first(deep, 2)[:2]
+    sts = tuple(torch.as_tensor(a, device=dev) for a in states)
+    ascents = {"staged_f64_wave": lambda: M.batched_cross_optimize(
+        wave, *sts, keep_conserved=True, split=False)}
     del deep
+    for name, args in (("enum_g_bucket", (12, 64, 8, 4, 16)),
+                       ("enum_i6_bucket", (4, 512, 8, 6, 64)),
+                       ("enum_i10_chunk", (4, 512, 16, 10, 512)),
+                       ("enum_transcriptome_chunk", (6, 1024, 16, 10, 128)),
+                       ("enum_transcriptome_region", (0, 1024, 16, 10, 1024))):
+        ascents[name] = _enum_chunk(dev, *args, seed=len(ascents))
+    res["ascent"] = {name: _schedule_ab(f"ascent {name}", run, traced=False)
+                     for name, run in ascents.items()}
+    del ascents, wave, sts
 
     # one deep region through phase_region, and its schedule alone
     cfg = preset("hifi-masseq")
@@ -3070,7 +3357,9 @@ def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
         raise AssertionError(f"graphs region: census off {a['launches']}, "
                              f"on {b['launches']}, programs {b['programs']}")
     runs["graphs_region"] = (b["launches"], b["shapes"])
-    *_, sargs = _region_schedule(dev, deep_input)
+    *_, sargs, first_ascent = _region_schedule(dev, deep_input)
+    res["ascent"]["deep_region_first"] = _schedule_ab(
+        "ascent, a deep region's first", first_ascent, traced=False)
     res["region"] = {
         "region": str(reg), "equal": True,
         **{("program_on" if on else "program_off"):
@@ -3080,6 +3369,70 @@ def phase_graphs(card: str, dev, tmp: str, deep_input, stream_input) -> dict:
             *sargs))}
     res["programs_freed"] = G.free_all()
     _emit("graphs", card, **res)
+    return runs
+
+
+def phase_transcriptome(card: str, dev, tmp: str) -> dict:
+    """The transcriptome-scale enumeration input (goldens.ENUM_INPUTS:
+    320 loci of 1 to 10 SNPs, 62,028 reads) through the CLI with 8
+    threads, batched and --no-batched, each with the device programs off
+    and on (``_graphs_cli_ab``), every phase problem on the card: bytes
+    equal across the four legs and equal to the JAX package's digests, no
+    host flag read with
+    the programs on, set-condition launches equal to the flag reads off,
+    one build per distinct shape; each kernel held against its plain
+    version at every launch shape the runs made; the three shapes each
+    kernel launched at most must be TX_CHUNK, TX_REGION and TX_SMALL,
+    which phase kernels timed beside their bound. The census:
+    regions, the share that took the enumeration path (enumeration
+    ascents against perturbation schedules on the per-region loop),
+    enumeration buckets, regions phased alone and distinct shapes.
+    Returns (launch counts, launch shapes) by run."""
+    bam, fa, params = _enum_input(tmp, "transcriptome")
+    res, runs = {"reads": params["n_reads"], "snps": params["n_snps"]}, {}
+    with _router(0):
+        for label, extra in (("batched", ()),
+                             ("per_region", ("--no-batched",))):
+            res[label], runs[f"transcriptome_{label}"] = _graphs_cli_ab(
+                tmp, f"transcriptome_{label}", bam, fa,
+                ("-t", "8") + extra, reference="transcriptome", check_at=dev)
+    # the four legs write one VCF and one phased-BAM payload (off and on
+    # were held equal within each leg)
+    _must_equal("transcriptome: batched vs --no-batched",
+                _payloads(os.path.join(tmp, "graphs_transcriptome_batched_on")),
+                _payloads(os.path.join(tmp,
+                                       "graphs_transcriptome_per_region_on")))
+    res["equal_across_legs"] = True
+    calls = res["per_region"]["program_on"]["program_calls"]
+    enum = calls.get("ascent_members", 0)
+    iterative = calls.get("schedule", 0)
+    census = res["batched"]["program_on"]["census"]
+    res["census"] = {
+        **census, "regions_enumeration": enum,
+        "regions_iterative": iterative,
+        "enumeration_share": enum / max(1, enum + iterative),
+        "distinct_program_shapes": {
+            leg: res[leg]["program_on"]["programs"]["distinct_shapes"]
+            for leg in ("batched", "per_region")}}
+    if enum + iterative <= 0 or enum / (enum + iterative) < 0.8:
+        raise AssertionError(f"transcriptome: {enum} enumeration regions of "
+                             f"{enum + iterative}")
+    # the shapes each kernel launched at most, over both legs: those
+    # phase kernels timed
+    count = {}
+    for leg in ("batched", "per_region"):
+        for name, shape, n in res[leg]["program_on"]["launches_by_shape"]:
+            count[name, tuple(shape)] = count.get((name, tuple(shape)), 0) + n
+    timed = {_launch_key(s) for s in (TX_CHUNK, TX_REGION, TX_SMALL)}
+    res["most_launched"] = {}
+    for name in KERNEL_NAMES:
+        top = sorted(((n, sh) for (k, sh), n in count.items() if k == name),
+                     reverse=True)[:len(timed)]
+        res["most_launched"][name] = [[list(sh), n] for n, sh in top]
+        if {sh for _, sh in top} != timed:
+            raise AssertionError(f"transcriptome: {name} launched most at "
+                                 f"{top}, phase kernels timed {timed}")
+    _emit("transcriptome", card, **res)
     return runs
 
 
@@ -3121,6 +3474,7 @@ def main() -> int:
         stream_runs, stream_input = phase_stream(card, tmp, notes)
         runs.update(stream_runs)
         runs.update(phase_graphs(card, dev, tmp, (bam, fa), stream_input))
+        runs.update(phase_transcriptome(card, dev, tmp))
         runs.update(phase_pod(card, tmp, stream_input))
         runs.update(phase_mesh(card, dev, tmp, (bam, fa), stream_input,
                                notes))

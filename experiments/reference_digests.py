@@ -1,21 +1,25 @@
 """Frozen reference digests of the JAX package's output on the bench inputs.
 
     JAX_PLATFORMS=cpu python experiments/reference_digests.py [--no-stream]
+        [--only LABEL ...]
 
 Runs the JAX package (``longcallr_tpu``, the reference) on the CPU backend
 through its CLI, one fresh process per run, on the inputs that
 ``chip_smoke.py`` drives on the card: the deep workload
 (``make_deep_workload`` defaults) at the default waves and as one wave of 4
 (``LONGCALLR_WAVE_CELLS`` = 2^40), the genome workload
-(``make_genome_workload`` defaults) and the stream input (5 contigs of 13
-loci of 40 kb at 120x, resident, 8 threads). Each run writes its VCF and
+(``make_genome_workload`` defaults), the stream input (5 contigs of 13
+loci of 40 kb at 120x, resident, 8 threads) and the enumeration inputs of
+``longcallr_tpu_torch/utils/goldens.ENUM_INPUTS`` ("enum", "enum_deep" and
+"transcriptome", 8 threads). Each run writes its VCF and
 phased BAM with the hifi-masseq preset, and the script writes to
 ``tests/golden/reference_digests.json``, per input: the SHA-256 of the VCF
 record lines (header left out) and of the sorted "qname HP PS" lines of the
 phased BAM's tagged reads (``utils/goldens.digests`` computes the same for
 the port), their counts, and the seconds the run took. ``--no-stream``
-leaves the stream input out (its run is the longest); where a run fails
-or times out its entry says so, with its seconds.
+leaves the stream input out (its run is the longest); ``--only`` runs the
+inputs named and keeps every other entry of the file as it is; where a run
+fails or times out its entry says so, with its seconds.
 
 The inputs are generated with the JAX package's own generator, whose copy
 in the port makes the same bytes (tests/test_torch_host_copies.py).
@@ -82,27 +86,37 @@ def _run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-stream", action="store_true")
+    ap.add_argument("--only", nargs="+", metavar="LABEL")
     args = ap.parse_args()
     sys.path.insert(0, HERE)
     from longcallr_tpu.utils.bench_workload import (make_deep_workload,
                                                      make_genome_workload)
+    from longcallr_tpu_torch.utils.goldens import ENUM_INPUTS
 
     out = {"reference": "longcallr_tpu CLI, JAX CPU backend, -p hifi-masseq",
            "script": "experiments/reference_digests.py", "inputs": {}}
+    if args.only:
+        with open(OUT) as f:
+            out = json.load(f)
+    # label → (generator keyword arguments, CLI arguments, environment)
+    inputs = {"deep": ({}, (), None), "deep_one_wave": ({}, (), ONE_WAVE),
+              "genome": ({}, (), None)}
+    if not args.no_stream:
+        inputs["stream"] = (dict(contigs=STREAM_SPEC),
+                            ("--no-stream", "-t", "8"), None)
+    for label, kw in ENUM_INPUTS.items():
+        inputs[label] = (kw, ("-t", "8"), None)
     with tempfile.TemporaryDirectory() as tmp:
         p = lambda n: os.path.join(tmp, n)
-        make_deep_workload(p("deep.bam"), p("deep.fa"))
-        make_genome_workload(p("genome.bam"), p("genome.fa"))
-        runs = [("deep", "deep.bam", "deep.fa", (), None),
-                ("deep_one_wave", "deep.bam", "deep.fa", (), ONE_WAVE),
-                ("genome", "genome.bam", "genome.fa", (), None)]
-        if not args.no_stream:
-            make_genome_workload(p("stream.bam"), p("stream.fa"),
-                                 contigs=STREAM_SPEC)
-            runs.append(("stream", "stream.bam", "stream.fa",
-                         ("--no-stream", "-t", "8"), None))
-        for label, bam, fa, extra, env in runs:
-            out["inputs"][label] = _run(tmp, label, p(bam), p(fa), extra, env)
+        for label in args.only or list(inputs):
+            kw, extra, env = inputs[label]
+            name = "deep" if label.startswith("deep") else label
+            bam, fa = p(f"{name}.bam"), p(f"{name}.fa")
+            if name == "deep":
+                make_deep_workload(bam, fa)
+            else:
+                make_genome_workload(bam, fa, **kw)
+            out["inputs"][label] = _run(tmp, label, bam, fa, extra, env)
             print(label, json.dumps(out["inputs"][label]), flush=True)
     with open(OUT, "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)

@@ -8,13 +8,11 @@ over a device mesh; here it is a plain function whose tensors carry the
 region axis first and run on the device they lie on: every elementwise
 step and both hand-kernel matvecs (``cuda_kernels``, one table per member)
 take the whole bucket in one launch, and an ascent is the masked loop of
-``optimize._ascend`` — each member freezes when its own continue flag
-drops, the loop ends when the last one has, with one host read of the
-flag per chunk of trips for the whole bucket. The fused phase
+``optimize._ascent`` — each member freezes when its own continue flag
+drops, the loop ends when the last one has. The ascents, the fused phase
 (``batched_phase_fused``) and the perturbation schedule are device programs
-on the card (``phasing/graphs.py``), built once per shape: their loops, the
-ascents' included, run on the device. A member's result never depends on
-its bucket-mates:
+on the card (``phasing/graphs.py``), built once per shape: their loops run
+on the device. A member's result never depends on its bucket-mates:
 its tables, its random draws (``keys``, one threefry key per region) and
 its round count are its own.
 
@@ -59,8 +57,8 @@ from ..phasing import cuda_kernels as CK
 from ..phasing import graphs
 from ..phasing import kernels_fast as KF
 from ..phasing import optimize as O
-from ..phasing.kernels import (TIE_TOL, CellTables, CompactCells, expand_cells,
-                               f64, overall_probability, read_logliks, sigma_q,
+from ..phasing.kernels import (TIE_TOL, CompactCells, expand_cells, f64,
+                               overall_probability, read_logliks, sigma_q,
                                snp_qs, snp_sums)
 from ..phasing.optimize import PhaseState
 
@@ -451,6 +449,9 @@ def sharded_ascent(sh: ReadShards, sigma0, delta0, eta0, site_mask,
             *snp_qs(*sums), cov, st, site_mask, conserved, with_genotype,
             keep_conserved)
         st = PhaseState(st.sigma, new_delta, new_eta)
+        # a host read of the continue flag, counted with the plain
+        # executor's (this ascent is not a device program)
+        CK.count_graphs(flag_reads=1)
         if not bool(s_inc | d_inc):
             break
     # objective (matvec form), per-shard partials added in shard order
@@ -794,59 +795,30 @@ def _phase_fused(batch: BatchedRegions, sigma0, delta0, eta0, block_id,
     return graphs.run(kind, dev, make, values)
 
 
-def enum_tables(batch: BatchedRegions, split: Optional[bool] = None,
-                mesh: Optional[Mesh] = None):
-    """Ascent tables of an enumeration bucket, one per region, for configs
-    whose active-read set is the region's ``read_base`` (every config's σ
-    is non-zero on exactly those reads). None on the spec path. With a
-    mesh, a list of each row's tables on its device, for
-    ``batched_enum_cross_optimize`` on the same rows."""
-    if not O.USE_FAST_KERNELS:
-        return None
-    if mesh is not None:
-        return [t for (t,) in _run_rows(_rows_of(batch, mesh), lambda i, b: (
-            enum_tables(b, split),))]
-    ones = batch.read_base.to(f64)
-    return _tables(batch, ones, _split(batch, split))
-
-
 def batched_enum_cross_optimize(batch: BatchedRegions, sigma0, configs, eta0,
-                                split: Optional[bool] = None, fts=None,
+                                split: Optional[bool] = None,
                                 mesh: Optional[Mesh] = None):
     """Enumeration path over a bucket: regions axis × configs axis.
 
     sigma0 [B,C,K] per-region per-config random inits; configs [C,I] shared
     (regions of a bucket have the same logical candidate count); eta0
-    [B,I]. Each region's configs share that region's tables (``fts``, from
-    ``enum_tables``; built here when None) — the hand kernels read table
-    b for the C members of region b. Returns (sigma, delta, eta)[B,C,...]
-    and prob[B,C]. With a mesh, ``sigma0`` and ``eta0`` are cut with the
-    regions, ``configs`` goes whole to every row, and ``fts`` is
-    ``enum_tables``' list of the rows' tables."""
+    [B,I]. One ascent program (``optimize._ascent``) builds each region's
+    tables once and its C configs share them — the hand kernels read table
+    b for the C members of region b; each region's configs must share its
+    active-read set (checked before the program runs). Returns (sigma,
+    delta, eta)[B,C,...] and prob[B,C]. With a mesh, ``sigma0`` and
+    ``eta0`` are cut with the regions and ``configs`` goes whole to every
+    row."""
     if mesh is not None:
         return _on_mesh(mesh, batch, lambda i, b, sg0, et0, cf:
-                        batched_enum_cross_optimize(
-                            b, sg0, cf, et0, split,
-                            None if fts is None else fts[i]),
+                        batched_enum_cross_optimize(b, sg0, cf, et0, split),
                         (sigma0, eta0), (configs,))
-    split = _split(batch, split)
     B, C, K = sigma0.shape
     I = configs.shape[-1]
-    rb = batch.read_base[:, None, :]
-    sm = batch.site_mask[:, None, :]
     st0 = PhaseState(sigma0, configs.to(f64).expand(B, C, I),
                      eta0[:, None, :].expand(B, C, I))
-    cons = torch.zeros_like(sm)
-    if O.USE_FAST_KERNELS:
-        if fts is None:
-            # checks that each region's configs share one active-read set
-            fts = O._fast_tables_for(batch.cells, batch.read_base[:, None],
-                                     sigma0, batch.site_mask, split)
-        st, prob = O._cross_optimize_fast_loop(
-            None, st0, rb, sm, cons, True, False, split,
-            ft=KF.for_members(fts))
-    else:
-        ct = expand_cells(batch.cells)
-        ct = CellTables(*(a[:, None] for a in ct))         # [B,1,K,I]
-        st, prob = O._cross_optimize_loop(ct, st0, rb, sm, cons, True, False)
+    st, prob, _ = O._ascent(batch.cells, st0, batch.read_base,
+                            batch.site_mask,
+                            torch.zeros_like(batch.site_mask), True, False,
+                            _split(batch, split), O.USE_FAST_KERNELS)
     return st.sigma, st.delta, st.eta, prob

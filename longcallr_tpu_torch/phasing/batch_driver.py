@@ -248,9 +248,8 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
                               np.zeros((B, I_pad), bool)), device, mesh)
     dp = lambda a: torch.as_tensor(a, device=home)
     split = O.split_mode(device if mesh is None else M.mesh_device(mesh))
-    # every config's σ is non-zero exactly on read_base: one table build per
-    # region serves all its configs and all chunks
-    fts = M.enum_tables(batch, split, mesh=mesh)
+    # every config's σ is non-zero exactly on read_base: a chunk's ascent
+    # program builds one table per region for all its configs
     eta0_d = dp(eta0)
 
     chunk = max(1, int(2 ** 24 // max(1, B * K * I_pad)))
@@ -262,7 +261,7 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
     for c0 in range(0, C, chunk):
         sg, dl, et, pr = M.batched_enum_cross_optimize(
             batch, dp(sig0[:, c0:c0 + chunk]), dp(configs[c0:c0 + chunk]),
-            eta0_d, split=split, fts=fts, mesh=mesh)
+            eta0_d, split=split, mesh=mesh)
         pr = pr.cpu().numpy()                    # [B, chunk]
         all_pr.append(pr)
         for b in range(B):

@@ -49,11 +49,12 @@ streams get different workspaces.
 ``LAUNCHES`` counts kernel launches per wrapper (plain-version calls are not
 counted), so a run can show that its main path went through the kernels;
 ``LAUNCH_SHAPES`` holds the (tables, K, I, members per table) of those
-launches, so the run can also show at which shapes. ``LAUNCHES_BY_DEVICE``
+launches, so the run can also show at which shapes, and
+``LAUNCHES_BY_SHAPE`` how many at each. ``LAUNCHES_BY_DEVICE``
 counts them per card (device index) and ``LAUNCHES_BY_ROW`` per row of a
 regions mesh: ``parallel/mesh.py`` names the row of each thread it runs
 (``set_launch_row``), so a run can show that every row launched, also
-where the rows repeat one card. ``reset_launches`` clears all four, the
+where the rows repeat one card. ``reset_launches`` clears all five, the
 graph counters below and the round draws' counts (``cuda_draws``).
 
 Under CUDA graph capture (``phasing/graphs.py``) a wrapper's launch becomes
@@ -88,6 +89,7 @@ import torch
 LAUNCHES = {"dual_matvec_rows": 0, "matvec_cols": 0}
 LAUNCH_SHAPES: Dict[str, Set[Tuple[int, int, int, int]]] = {
     "dual_matvec_rows": set(), "matvec_cols": set()}
+LAUNCHES_BY_SHAPE: Dict[Tuple[str, Tuple[int, int, int, int]], int] = {}
 LAUNCHES_BY_DEVICE: Dict[int, Dict[str, int]] = {}
 LAUNCHES_BY_ROW: Dict[int, Dict[str, int]] = {}
 # device programs of the phase (phasing/graphs.py): launches, builds, piece
@@ -144,6 +146,7 @@ def reset_launches() -> None:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             LAUNCH_SHAPES[k].clear()
+        LAUNCHES_BY_SHAPE.clear()
         LAUNCHES_BY_DEVICE.clear()
         LAUNCHES_BY_ROW.clear()
         GRAPHS.update(_GRAPHS_ZERO)
@@ -183,6 +186,8 @@ def _add(launches, n: int = 1) -> None:
                 continue
             LAUNCHES[name] += n
             LAUNCH_SHAPES[name].add(shape)
+            LAUNCHES_BY_SHAPE[name, shape] = \
+                LAUNCHES_BY_SHAPE.get((name, shape), 0) + n
             for table, key in ((LAUNCHES_BY_DEVICE, device_index),
                                (LAUNCHES_BY_ROW, row)):
                 if key is not None:

@@ -5,15 +5,16 @@ Port of the per-region path of ``longcallr_tpu/phasing/optimize.py``
 cross_optimize_by_block). The reference's per-read/per-SNP argmax loops are
 synchronous (all reads update from the current SNP state, then all SNPs
 from the new read state), so each half-step is one batched tensor call.
-The ≤21-iteration ascent runs in chunks of ASCENT_CHUNK masked trips with
-one host read of its continue flag per chunk; a batch of ascents (the
-enumeration path's configs, a bucket's regions) runs as one loop in which
-each member freezes when its own flag drops — the semantics of the JAX
-package's vmapped ``while_loop``. The perturbation schedule keeps its state
-in tensors updated in place and is a ``graphs.Program`` of pieces and
-``While`` loops (the rounds, and each ascent's chunks), which the card runs
-as one device program with its loops on the device — the counterpart of
-the JAX package's one ``jax.jit`` program.
+The ≤21-iteration ascent runs in chunks of ASCENT_CHUNK masked trips while
+its continue flag is set; a batch of ascents (the enumeration path's
+configs, a bucket's regions) runs as one loop in which each member freezes
+when its own flag drops — the semantics of the JAX package's vmapped
+``while_loop``. An ascent (``_ascent``) and the perturbation schedule keep
+their state in tensors updated in place and are ``graphs.Program``s of
+pieces and ``While`` loops (each ascent's chunks, the rounds), which the
+card runs as one device program with its loops on the device — the
+counterpart of the JAX package's ``jax.jit`` programs; the reference-form
+ascent runs on the plain executor, one host read of the flag per chunk.
 
 Execution modes (the JAX package's knobs): LONGCALLR_FAST_KERNELS=0
 selects the reference-form ascent (the specification); the default
@@ -118,9 +119,10 @@ def _select(mask, new: PhaseState, old: PhaseState) -> PhaseState:
                       sel(new.eta, old.eta))
 
 
-# trips of an ascent between two host reads of its continue flag: the
-# ascents of the perturbation schedule mostly end after two trips (one that
-# changes the state and one that finds nothing to change)
+# trips of an ascent between two reads of its continue flag (on the card a
+# WHILE node's condition, in the plain executor a host read): the ascents of
+# the perturbation schedule mostly end after two trips (one that changes the
+# state and one that finds nothing to change)
 ASCENT_CHUNK = 2
 MAX_TRIPS = 21
 
@@ -152,20 +154,32 @@ def _trips(st: PhaseState, active, count, sigma_step, snp_step,
     return active.any() & (count < MAX_TRIPS)
 
 
-def _ascend(st: PhaseState, sigma_step,
-            snp_step) -> Tuple[PhaseState, torch.Tensor]:
-    """≤21 synchronous half-step pairs; each member of a batch stops when
-    its own continue flag drops. The trips go in chunks of ASCENT_CHUNK with
-    one host read of the flag per chunk. Returns (state, trips taken — the
-    most any member needed — as an int64 scalar on the state's device)."""
-    dev = st.sigma.device
-    st = PhaseState(*(a.clone() for a in st))
-    active = torch.ones(st.sigma.shape[:-1], dtype=torch.bool, device=dev)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    while bool(_trips(st, active, count, sigma_step, snp_step,
-                      ASCENT_CHUNK)):
-        pass
-    return st, count
+def _ascent_nodes(z, prepare) -> tuple:
+    """One ascent (≤21 synchronous half-step pairs, each member of a batch
+    stopping when its own continue flag drops) as program nodes over the
+    namespace ``z``: "start" calls ``prepare`` (which sets ``z.steps``,
+    (sigma_step, snp_step, objective)), copies the entry state ``z.entry``
+    into ``z.cur``, sets every flag of ``z.active``, zeroes the trip count
+    ``z.count`` and runs ASCENT_CHUNK trips; "ascent" runs ASCENT_CHUNK more
+    while ``z.more`` is set; "objective" scores the final state into
+    ``z.prob``. ``z.count`` ends as the most trips any member needed."""
+    def climb():
+        z.more.copy_(_trips(z.cur, z.active, z.count, z.steps[0],
+                            z.steps[1], ASCENT_CHUNK))
+
+    def start():
+        prepare()
+        _assign(z.cur, z.entry)
+        z.active.fill_(True)
+        z.count.zero_()
+        climb()
+
+    def score():
+        z.prob.copy_(z.steps[2](z.cur))
+
+    return (graphs.Piece("start", start),
+            graphs.While(z.more, (graphs.Piece("ascent", climb),)),
+            graphs.Piece("objective", score))
 
 
 def _snp_decision(q1, q2, q3, q4, cov, st: PhaseState, site_mask, conserved,
@@ -196,11 +210,22 @@ def _snp_decision(q1, q2, q3, q4, cov, st: PhaseState, site_mask, conserved,
 def _cross_optimize_loop(ct, st: PhaseState, read_base, site_mask,
                          conserved, with_genotype: bool,
                          keep_conserved: bool):
-    """Reference-form ascent (the specification path)."""
-    sigma_step, snp_step, objective = _spec_steps(
-        ct, read_base, site_mask, conserved, with_genotype, keep_conserved)
-    st, _ = _ascend(st, sigma_step, snp_step)
-    return st, objective(st)
+    """Reference-form ascent (the specification path): the ascent program
+    walked by the plain executor."""
+    st, prob, _ = _ascent(ct, st, read_base, site_mask, conserved,
+                          with_genotype, keep_conserved, False, fast=False)
+    return st, prob
+
+
+def _first_member(rm0, lead: int):
+    """The active-read set of the members that share each table (axis
+    ``lead`` of ``rm0``, read_base & σ≠0); raises ValueError where they
+    differ. A host sync: never inside a program's piece."""
+    first = rm0.select(lead, 0)
+    if not bool((rm0 == first.unsqueeze(lead)).all()):
+        raise ValueError("ascents that share a table must share one "
+                         "active-read set")
+    return first
 
 
 def _fast_tables_for(ct, read_base, sigma, site_mask, split: bool):
@@ -211,15 +236,12 @@ def _fast_tables_for(ct, read_base, sigma, site_mask, split: bool):
     Cells [K,I] give one region's tables; cells [B,K,I] (with read_base and
     σ [B,K], site_mask [B,I]) give a bucket's, one table per member. A σ
     with one more axis than that (the enumeration configs) must share each
-    region's set."""
+    region's set (``_first_member``; a program's piece passes the first
+    member's σ, checked before the program runs)."""
     rm0 = read_base & (sigma != 0)
     lead = ct.p.dim() - 2
     if rm0.dim() - 1 > lead:
-        first = rm0.select(lead, 0)
-        if not bool((rm0 == first.unsqueeze(lead)).all()):
-            raise ValueError("ascents that share a table must share one "
-                             "active-read set")
-        rm0 = first
+        rm0 = _first_member(rm0, lead)
     if split:
         if isinstance(ct, CompactCells):
             return KF.fast_tables32_from_compact(ct, rm0, site_mask)
@@ -229,10 +251,10 @@ def _fast_tables_for(ct, read_base, sigma, site_mask, split: bool):
 
 def _cross_optimize_fast_loop(ct, st: PhaseState, read_base, site_mask,
                               conserved, with_genotype: bool,
-                              keep_conserved: bool, split: bool, ft=None):
+                              keep_conserved: bool, split: bool):
     st, prob, _ = _cross_optimize_fast_loop_it(
         ct, st, read_base, site_mask, conserved, with_genotype,
-        keep_conserved, split, ft)
+        keep_conserved, split)
     return st, prob
 
 
@@ -291,21 +313,104 @@ def _spec_steps(ct, read_base, site_mask, conserved, with_genotype: bool,
     return sigma_step, snp_step, objective
 
 
+def _input_buffers(values: Dict[str, torch.Tensor], dev: torch.device):
+    """A program's input buffers on ``dev``, one for every value (by its
+    name, also as an attribute of a namespace ``z``). Returns (z, the
+    buffers by name)."""
+    z = SimpleNamespace()
+    inputs = {}
+    for k, v in values.items():
+        inputs[k] = torch.empty(tuple(v.shape), dtype=v.dtype, device=dev)
+        setattr(z, k, inputs[k])
+    return z, inputs
+
+
+def _ascent(ct, st: PhaseState, read_base, site_mask, conserved,
+            with_genotype: bool, keep_conserved: bool, split: bool,
+            fast: bool):
+    """One ascent as one device program (``graphs.run``): the table build
+    from the cells and the entry σ, the loop of ASCENT_CHUNK trips while
+    some member ascends, and the objective (``_ascent_nodes``); the
+    counterpart of the JAX package's compiled ascents (its ``while_loop``
+    on the device, one issue, one read of the result). ``fast``: the
+    matvec form (``_fast_steps``, split or f64) as a device program on the
+    card; else the reference form (``_spec_steps``), never captured, which
+    the plain executor walks.
+
+    The tables carry the cells' leading axes (none for one region, [B] for
+    a bucket); the state carries them and may carry one more, the members
+    that share each table (the enumeration configs: σ [C,K] over cells
+    [K,I], or [B,C,K] over [B,K,I] with read_base [B,K] and site_mask,
+    conserved [B,I]): member m of region b reads table b. Such members
+    must share the table's active-read set, which is checked here, before
+    the program runs. Returns (state, prob, trips taken — the most any
+    member needed — as an int64 scalar on the cells' device)."""
+    dev = ct.p.device
+    lead = ct.p.dim() - 2
+    members = st.sigma.dim() - 1 > lead
+    if members:
+        _first_member(read_base.unsqueeze(lead) & (st.sigma != 0), lead)
+    # a mask of the tables' shape gets the members' axis to broadcast over
+    per = ((lambda t: t.unsqueeze(lead)) if members and lead
+           else (lambda t: t))
+    fields = type(ct)._fields
+    values = {f"cell_{f}": getattr(ct, f) for f in fields}
+    values.update(read_base=read_base, site_mask=site_mask,
+                  conserved=conserved, sigma=st.sigma, delta=st.delta,
+                  eta=st.eta)
+
+    def make():
+        z, inputs = _input_buffers(values, dev)
+        z.entry = PhaseState(z.sigma, z.delta, z.eta)
+        z.cur = PhaseState(*(torch.zeros_like(a) for a in z.entry))
+        batch = tuple(st.sigma.shape[:-1])
+        z.active = torch.zeros(batch, dtype=torch.bool, device=dev)
+        z.prob = torch.zeros(batch, dtype=f64, device=dev)
+        z.count = torch.zeros((), dtype=torch.int64, device=dev)
+        z.more = torch.zeros((), dtype=torch.bool, device=dev)
+        KF.constants_on(dev)
+
+        def prepare():
+            cells = type(ct)(*(getattr(z, f"cell_{f}") for f in fields))
+            rb, sm, cons = per(z.read_base), per(z.site_mask), per(
+                z.conserved)
+            if fast:
+                # one build for all members of a table: their active-read
+                # set is the first member's
+                ft = _fast_tables_for(
+                    cells, z.read_base,
+                    z.sigma.select(lead, 0) if members else z.sigma,
+                    z.site_mask, split)
+                if members and lead:
+                    ft = KF.for_members(ft)
+                z.steps = _fast_steps(ft, rb, z.sigma, sm, cons,
+                                      with_genotype, keep_conserved, split)
+            else:
+                tabs = as_tables(cells)
+                if members and lead:
+                    tabs = CellTables(*(a.unsqueeze(lead) for a in tabs))
+                z.steps = _spec_steps(tabs, rb, sm, cons, with_genotype,
+                                      keep_conserved)
+
+        return graphs.Program(dev, inputs, _ascent_nodes(z, prepare),
+                              (*z.cur, z.prob, z.count))
+
+    kind = ("ascent", type(ct).__name__, with_genotype, keep_conserved,
+            split, fast, ASCENT_CHUNK)
+    sg, dl, et, prob, trips = graphs.run(kind, dev, make, values,
+                                         capture=fast)
+    return PhaseState(sg, dl, et), prob, trips
+
+
 def _cross_optimize_fast_loop_it(ct, st: PhaseState, read_base, site_mask,
                                  conserved, with_genotype: bool,
-                                 keep_conserved: bool, split: bool, ft=None):
+                                 keep_conserved: bool, split: bool):
     """Matvec-form ascent (kernels_fast): the reference's argmax/tie rules,
-    two matvecs per iteration. ``ft``: prebuilt tables (their active-read
-    mask must equal read_base & (st.sigma != 0)). With a leading region
-    axis on everything the whole bucket ascends in the same launches.
-    Returns (state, prob, trips as an int64 scalar)."""
-    if ft is None:
-        ft = _fast_tables_for(ct, read_base, st.sigma, site_mask, split)
-    sigma_step, snp_step, objective = _fast_steps(
-        ft, read_base, st.sigma, site_mask, conserved, with_genotype,
-        keep_conserved, split)
-    st, trips = _ascend(st, sigma_step, snp_step)
-    return st, objective(st), trips
+    two matvecs per iteration, as one device program (``_ascent``). With a
+    leading region axis on everything the whole bucket ascends in the same
+    launches. Returns (state, prob, trips as an int64 scalar)."""
+    return _ascent(ct, st, read_base, site_mask, conserved, with_genotype,
+                   keep_conserved, split, fast=True)
 
 
 def cross_optimize_fast(ct, st: PhaseState, read_base, site_mask, conserved,
@@ -319,13 +424,13 @@ def cross_optimize_fast(ct, st: PhaseState, read_base, site_mask, conserved,
 
 def cross_optimize(ct, st: PhaseState, read_base, site_mask, conserved,
                    with_genotype: bool, keep_conserved: bool,
-                   split: bool = False, ft=None):
+                   split: bool = False):
     """Alternating coordinate ascent, ≤21 iterations (phase.rs:810-976).
     Returns (final state, overall log10 probability)."""
     if USE_FAST_KERNELS:
         return _cross_optimize_fast_loop(ct, st, read_base, site_mask,
                                          conserved, with_genotype,
-                                         keep_conserved, split, ft)
+                                         keep_conserved, split)
     return _cross_optimize_loop(ct, st, read_base, site_mask, conserved,
                                 with_genotype, keep_conserved)
 
@@ -422,11 +527,7 @@ def _schedule_namespace(values: Dict[str, torch.Tensor], lead: tuple, K: int,
     (``go``), the trips of each ascent ([cap, 2]) and every round's draws.
     The emission tables go to ``dev`` too (``kernels_fast.constants_on``).
     Returns (z, the input buffers by name)."""
-    z = SimpleNamespace()
-    inputs = {}
-    for k, v in values.items():
-        inputs[k] = torch.empty(tuple(v.shape), dtype=v.dtype, device=dev)
-        setattr(z, k, inputs[k])
+    z, inputs = _input_buffers(values, dev)
     R = _draw_rounds(I)
     e = lambda shape, dt=f64: torch.zeros(shape, dtype=dt, device=dev)
     z.best = PhaseState(e(lead + (K,)), e(lead + (I,)), e(lead + (I,)))
@@ -970,12 +1071,8 @@ def _phase_region_padded_impl(frags, cands, cfg, seed, apply_downsampling,
         cons = torch.zeros(I_pad, dtype=torch.bool, device=device)
         eta0_t = on_dev(eta0.astype(np.float64))
         # every config's active-read set read_base & σ≠0 is read_base itself:
-        # one set of ascent tables serves all configs
-        if not ((sig0 != 0) == read_base_np[None, :]).all():
-            raise RuntimeError("enumeration configs do not share the "
-                               "active-read set read_base")
-        ft = (_fast_tables_for(ct, read_base, on_dev(sig0[0]), site_mask,
-                               split) if USE_FAST_KERNELS else None)
+        # each chunk's ascent program builds one set of tables for its
+        # configs
         # chunk configs to bound peak memory (C·K·I intermediates)
         chunk = max(1, int(2 ** 24 // max(1, K * I_pad)))
         chunk = min(C, 1 << (chunk.bit_length() - 1))
@@ -989,8 +1086,7 @@ def _phase_region_padded_impl(frags, cands, cfg, seed, apply_downsampling,
                              eta0_t.expand(sg.shape[0], I_pad).clone())
             sts, probs = cross_optimize(ct, st0, read_base, site_mask, cons,
                                         with_genotype=True,
-                                        keep_conserved=False, split=split,
-                                        ft=ft)
+                                        keep_conserved=False, split=split)
             probs = probs.cpu().numpy()
             all_probs.append(probs)
             # sequential keep-best with the tie-quantized rule: first in

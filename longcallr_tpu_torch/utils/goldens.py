@@ -7,8 +7,9 @@ same seeds and calls (through ``utils/simulate.py``) and reads the frozen
 outputs back, so that the port can be held to them on the CPU and on a card
 without importing that test module, which imports the JAX caller.
 
-The bench inputs (deep, genome, stream) are held to frozen digests of the
-JAX package's output instead (``tests/golden/reference_digests.json``,
+The bench inputs (deep, genome, stream) and the enumeration inputs
+(``ENUM_INPUTS``) are held to frozen digests of the JAX package's output
+instead (``tests/golden/reference_digests.json``,
 written by ``experiments/reference_digests.py``): ``digests`` computes the
 same SHA-256s of a run of the port.
 """
@@ -32,6 +33,29 @@ GOLDEN_DIR = os.path.join(
     "tests", "golden")
 
 GOLDEN_NAMES = ("ont-cdna", "ont-drna", "hifi-isoseq", "exon_only")
+
+# the enumeration inputs held to the JAX package's digests, as keyword
+# arguments of make_genome_workload: run "enum" (twelve loci of 4 SNPs),
+# run "enum_deep" (four loci of 6 SNPs and four of 10, 432 and 510 reads)
+# and the transcriptome-scale input: a sample's many small genes, 8 contigs
+# of 40 loci whose lengths cycle through 1.8 to 9 kb (a SNP every 900 bp,
+# 1 to 9 a locus) and whose depths cycle through 15x to 120x of 1.5 kb
+# reads (a read lies wholly inside its locus, so a 1.8 kb locus cannot take
+# a 3 kb read): 320 loci, 62,028 reads
+_TX_LENS = (1_800, 2_700, 3_600, 5_400, 7_200, 9_000)
+_TX_DEPTHS = (15, 30, 60, 120)
+ENUM_INPUTS = {
+    "enum": dict(contigs=[(f"chrE{c}", [(4_000, 40, 900)] * 4)
+                          for c in range(3)], seed=20_261_016),
+    "enum_deep": dict(contigs=[("chrF0", [(5_400, 240, 900)] * 4),
+                               ("chrF1", [(9_000, 170, 900)] * 4)],
+                      seed=20_261_017),
+    "transcriptome": dict(
+        contigs=[(f"chrT{c}", [(_TX_LENS[k % 6], _TX_DEPTHS[k % 4], 900)
+                               for k in range(40 * c, 40 * c + 40)])
+                 for c in range(8)],
+        seed=20_261_018, read_len=1_500),
+}
 _GOLDEN_SEEDS = {"ont-cdna": 101, "ont-drna": 102, "hifi-isoseq": 103,
                  "exon_only": 104}
 _EXON_GTF = ('chrS\tsrc\tgene\t1\t6000\t.\t+\t.\tgene_id "G1";\n'

@@ -20,6 +20,7 @@ shape.
 """
 
 import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -237,9 +238,31 @@ def test_chunked_ascent_of_a_bucket(chunk, split):
     assert int(trips) == max(each) and min(each) >= 1
 
 
+def _plain_ascent(st0, sigma_step, snp_step):
+    """The ascent program's nodes (optimize._ascent_nodes) over stand-in
+    half-steps, walked by the plain executor: (state, trips)."""
+    lead = st0.sigma.shape[:-1]
+    z = SimpleNamespace(
+        entry=st0, cur=TO.PhaseState(*(torch.zeros_like(a) for a in st0)),
+        active=torch.zeros(lead, dtype=torch.bool),
+        prob=torch.zeros(lead, dtype=torch.float64),
+        count=torch.zeros((), dtype=torch.int64),
+        more=torch.zeros((), dtype=torch.bool))
+
+    def prepare():
+        z.steps = (sigma_step, snp_step, lambda st: st.delta.sum(-1))
+
+    prog = graphs.Program(torch.device("cpu"), {},
+                          TO._ascent_nodes(z, prepare),
+                          (*z.cur, z.prob, z.count))
+    prog.run_plain()
+    return TO.PhaseState(*prog.outputs[:3]), prog.outputs[4]
+
+
 def test_trip_cap_and_frozen_members(chunk):
-    """Stand-in half-steps: member 0 never converges and stops at the 21-trip
-    cap, member 1 converges after its third trip and keeps that state."""
+    """Stand-in half-steps through the ascent program's nodes: member 0
+    never converges and stops at the 21-trip cap, member 1 converges after
+    its third trip and keeps that state."""
     sigma0 = torch.ones(2, 4, dtype=torch.float64)
     st0 = TO.PhaseState(sigma0, torch.zeros(2, 3, dtype=torch.float64),
                         torch.zeros(2, 3, dtype=torch.float64))
@@ -250,7 +273,7 @@ def test_trip_cap_and_frozen_members(chunk):
     def snp_step(st):
         return st.delta + 1.0, st.eta, st.delta[:, 0] < 2.0
 
-    got, trips = TO._ascend(st0, sigma_step, snp_step)
+    got, trips = _plain_ascent(st0, sigma_step, snp_step)
     old, old_trips = _ascend_per_trip(st0, sigma_step, snp_step)
     assert int(trips) == old_trips == 21
     _same(got, old)

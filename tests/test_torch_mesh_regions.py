@@ -259,8 +259,8 @@ def test_batched_phase_fused_on_mesh(shape, B, split_mode):
 @pytest.mark.parametrize("shape,B", MESHES)
 def test_batched_enum_cross_optimize_on_mesh(shape, B):
     """sigma0 [B, C, K] and eta0 are cut with the regions, the configs go
-    whole to every row, and each row's tables (enum_tables) serve its
-    configs."""
+    whole to every row, and each row's ascent program builds its regions'
+    tables once for their configs."""
     jmesh, tmesh = _meshes(shape)
     d = _bucket(18, B, K=16, I=8)
     jb, tb = _batches(d)
@@ -278,10 +278,8 @@ def test_batched_enum_cross_optimize_on_mesh(shape, B):
     plain = TM.batched_enum_cross_optimize(tb, _t(sig0), _t(configs),
                                            _t(eta0))
     rows = TM.shard_regions(tb, tmesh)
-    fts = TM.enum_tables(rows, mesh=tmesh)
-    assert len(fts) == len(rows.batches)
     got = TM.batched_enum_cross_optimize(rows, _t(sig0), _t(configs),
-                                         _t(eta0), fts=fts, mesh=tmesh)
+                                         _t(eta0), mesh=tmesh)
     _check(got, plain, want, 3)
 
 
