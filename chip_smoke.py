@@ -14,9 +14,9 @@ package) and fails on the first check that does not hold:
                (I not a multiple of 4; a table that is not 16-byte
                aligned); then 4 host threads call matvec_cols at once, two
                on the default stream and two on streams of their own.
-               dual_matvec_rows also member by member: a member's result
-               among the g members of its table must equal its result alone
-               on that table bit for bit. One checked shape is 64 tables of
+               Both kernels also member by member: a member's result among
+               the g members of its table must equal its result alone on
+               that table bit for bit. One checked shape is 64 tables of
                (8, 16) with 1,024 members each, 65,536 members, more than
                the second or third dimension of a grid holds (not timed).
                At the main-path shapes — deep (1, 4096, 512), a deep bucket
@@ -31,7 +31,9 @@ package) and fails on the first check that does not hold:
                table, and what the transcriptome input of phase 20
                launches most: 6 tables of (1024, 16) with 128 members
                each, 1,024 members on one (1024, 16) table and 8 on one
-               (64, 8) table — each kernel
+               (64, 8) table — and at one member per table with I <= 32
+               (iterative regions of 11 to 32 SNPs: one (4096, 16) table,
+               5 of (2048, 32), one of (4096, 32)), each kernel
                is timed beside its plain version and
                the one library call that computes the same function
                (torch.matmul / torch.bmm on the f64 tables, the widening
@@ -39,7 +41,9 @@ package) and fails on the first check that does not hold:
                call and the median time of one call between CUDA events
                (both before the profiler first runs), then the device time
                per call from torch.profiler with the table warm in L2 and
-               cold (256 MB written and read back between calls).
+               cold (256 MB written and read back between calls); where
+               matvec_cols takes the walk (I <= 32), also the strip that
+               served those shapes before it, on the same inputs.
                The bound is the larger of bytes / 3.35 TB/s (each input
                read once, rows with σ = 0 not counted, the result written
                once) and f64 operations / 33.5 TFLOP/s (half the card's
@@ -354,6 +358,12 @@ ENUM_RUN_REGION = (16, 64, 8, True)
 TX_CHUNK = (6, 1024, 16, False, 128)
 TX_REGION = (1024, 1024, 16, True)
 TX_SMALL = (8, 64, 8, True)
+# one member per table at I <= 32, which the cols walk's direct form
+# serves: iterative regions of 11 to 32 SNPs (I padded to 16 or 32), alone
+# or in a bucket of five, with many reads
+ITER16_REGION = (1, 4096, 16, False)
+ITER32_BUCKET = (5, 2048, 32, False)
+ITER32_REGION = (1, 4096, 32, False)
 # 64 regions of 10 SNPs with at most 8 reads each in one bucket: 65,536
 # members in one launch (checked, not timed)
 ENUM_LIMIT = (64, 8, 16, False, 1024)
@@ -378,14 +388,17 @@ TIMED = {DEEP: "deep", DEEP_BUCKET: "deep_bucket", DEEP_WAVE: "deep_wave",
          ENUM10_MESH_ROW: "enum10_mesh_row",
          ENUM_RUN_BUCKET: "enum_run_bucket",
          ENUM_RUN_REGION: "enum_run_region", TX_CHUNK: "tx_chunk",
-         TX_REGION: "tx_region", TX_SMALL: "tx_small_region"}
+         TX_REGION: "tx_region", TX_SMALL: "tx_small_region",
+         ITER16_REGION: "iter16_region", ITER32_BUCKET: "iter32_bucket",
+         ITER32_REGION: "iter32_region"}
 # every shape phase_kernels holds against the plain versions: the main-path
 # shapes first, then unaligned ones
 CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, STREAM_WAVE, STREAM_TAIL,
                   *STREAM_SHARES, ENUM6_BUCKET, ENUM6_REGION,
                   ENUM10_BUCKET, ENUM10_REGION, ENUM10_MESH_ROW,
                   *ENUM_MESH_PAIRS, ENUM_RUN_BUCKET, ENUM_RUN_REGION,
-                  TX_CHUNK, TX_REGION, TX_SMALL, ENUM_LIMIT,
+                  TX_CHUNK, TX_REGION, TX_SMALL, ITER16_REGION,
+                  ITER32_BUCKET, ITER32_REGION, ENUM_LIMIT,
                   (1, 37, 300, False), (1, 1025, 129, False),
                   (1, 513, 700, False), (1, 4096, 510, False),
                   (5, 300, 64, False), (3, 200, 24, False, 5),
@@ -396,7 +409,15 @@ CHECKED_SHAPES = [DEEP, DEEP_BUCKET, DEEP_WAVE, STREAM_WAVE, STREAM_TAIL,
                   # a warp per row with more than one member: rows in
                   # shared memory (under and over 48 KB), and too wide for it
                   (2, 40, 600, False, 70), (2, 24, 2000, False, 300),
-                  (140, 8, 4000, True), (2, 24, 30000, False, 3)]
+                  (140, 8, 4000, True), (2, 24, 30000, False, 3),
+                  # the cols walk: one member per table (the direct form,
+                  # a cluster splitting K; many rounds of it), odd K (4- and
+                  # 8-byte copies, an odd last row) in the direct form and
+                  # in the staged walk, a stage of K itself, many stages
+                  (4, 1024, 16, False), (1, 100000, 16, False),
+                  (2, 1025, 8, False), (3, 37, 12, False, 4),
+                  (2, 1025, 8, False, 100), (3, 37, 12, False, 50),
+                  (2, 2048, 32, False, 24), (2, 8, 4, False, 3000)]
 KERNEL_NAMES = ("dual_matvec_rows", "matvec_cols")
 
 
@@ -683,6 +704,28 @@ def _time_device(name, kern, plain, hi, lo, op, flush) -> dict:
     t["warm_in_l2"] = nbytes <= L2_BYTES
     t["share_of_bound"] = None if t["warm_in_l2"] else bound_ms / t["ms"]
     t["share_of_bound_cold"] = bound_ms / t["cold_ms"]
+    # the kernel's time over the library call's: below 1, the kernel leads
+    t["vs_library"] = t["ms"] / t["library_ms"]
+    t["vs_library_cold"] = t["cold_ms"] / t["library_cold_ms"]
+    if name == "matvec_cols":
+        from longcallr_tpu_torch.phasing import cuda_kernels as CK
+        K, I = hi.shape[-2], hi.shape[-1]
+        t["path"] = CK.cols_path(I)
+        if t["path"] == "walk":
+            tables = hi.shape[0] if hi.dim() == 3 else 1
+            g = op.numel() // (K * tables)
+            t["path_plan"] = list(CK.cols_walk_plan(
+                tables, K, I, g, CK._sm_count(hi.device)))
+            # the strip, which served these shapes before the walk, on the
+            # same inputs (held to the plain version first)
+            strip = lambda: CK.cols_strip(hi, lo, op)
+            _check(name, "strip", CK.cols_strip, plain, hi, lo, op,
+                   {name: {"max_abs_err": 0.0, "max_rel_err": 0.0}})
+            t["strip_ms"] = _device_ms(strip)
+            t["strip_cold_ms"] = _device_ms(strip, flush)
+            # below 1, the walk leads
+            t["vs_strip"] = t["ms"] / t["strip_ms"]
+            t["vs_strip_cold"] = t["cold_ms"] / t["strip_cold_ms"]
     return t
 
 
@@ -704,7 +747,9 @@ def _launch_operands(rng, shape, dev):
 def _check_shapes(dev, shapes) -> None:
     """Each kernel against its plain version at launch shapes that a run
     launched and phase_kernels did not check (random tables and operands,
-    ``_check``'s tolerance); they join CHECKED_LATER."""
+    ``_check``'s tolerance), and where members share a table a member
+    among them against itself alone (``_members_alone``); they join
+    CHECKED_LATER."""
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
 
     rng = np.random.default_rng(20261018)
@@ -713,16 +758,19 @@ def _check_shapes(dev, shapes) -> None:
              "matvec_cols": (CK.matvec_cols, CK.matvec_cols_plain)}
     for shape in shapes:
         hi, lo, ops = _launch_operands(rng, tuple(shape), dev)
+        row = {"launch_shape": list(shape)}
         for name, (kern, plain) in kerns.items():
-            _check(name, {"launch_shape": list(shape)}, kern, plain, hi, lo,
-                   ops[name], KERNEL_STATS)
+            _check(name, row, kern, plain, hi, lo, ops[name], KERNEL_STATS)
+            if shape[3] > 1:                # members that share a table
+                _members_alone(name, row, kern, hi, lo, ops[name])
         CHECKED_LATER.add(tuple(shape))
 
 
-def _members_alone(row, kern, hi, lo, x) -> int:
-    """dual_matvec_rows: a member among the g members of its table against
-    the same member alone on that table, bit for bit, for members at both
-    ends of a table and of the batch. Returns the members compared."""
+def _members_alone(name, row, kern, hi, lo, x) -> int:
+    """A member among the g members of its table against the same member
+    alone on that table, bit for bit, for members at both ends of a table
+    and of the batch (x: the rows kernel's [.., I, 2] or the cols kernel's
+    σ [.., K]). Returns the members compared."""
     both = kern(hi, lo, x)
     if hi.dim() == 2:                       # one table, members [B, I, 2]
         pick = sorted({(0, m) for m in (0, 1, x.shape[0] // 2,
@@ -736,8 +784,8 @@ def _members_alone(row, kern, hi, lo, x) -> int:
     for t, m in pick:
         one, among = alone(t, m)
         if not torch.equal(one, among):
-            raise AssertionError(f"dual_matvec_rows {row}: member {m} of "
-                                 f"table {t} differs from its result alone")
+            raise AssertionError(f"{name} {row}: member {m} of table {t} "
+                                 f"differs from its result alone")
     return len(pick)
 
 
@@ -1107,8 +1155,9 @@ def phase_kernels(card: str, dev):
                 stats[name][TIMED[shape]] = row[name]
                 timed.append((name, row[name], hi, lo, op))
         if C is not None or (shared and B > 1):
-            row["members_equal_alone"] = _members_alone(
-                row, kerns["dual_matvec_rows"][0], hi, lo, x)
+            for name, op in (("dual_matvec_rows", x), ("matvec_cols", s)):
+                row[name]["members_equal_alone"] = _members_alone(
+                    name, row, kerns[name][0], hi, lo, op)
         if C is not None:
             # the same members named flat, with the wrapper's argument
             for name, op, nd in (("dual_matvec_rows", x, 2),
@@ -1161,6 +1210,19 @@ def phase_kernels(card: str, dev):
         res = _check(name, "misaligned", k2, p2, hi_m, lo_m, op, stats)
         res.update(case=f"misaligned_{name}")
         cases.append(res)
+    # the walk on a misaligned table and σ (no bulk copies): 512 members
+    # of one table (the staged walk), and one member alone (the direct form)
+    hi_w, lo_w = _split_dp(rng, (512, 16), dev, misalign=True)
+    s_buf = torch.as_tensor(rng.integers(-1, 2, size=512 * 512 + 1).astype(
+        np.float64), device=dev)
+    s_w = s_buf[1:].view(512, 512)
+    if (hi_w.data_ptr() % 16 == 0) or (s_w.data_ptr() % 16 == 0):
+        raise AssertionError("the misaligned walk operands are aligned")
+    res = _check("matvec_cols", "misaligned walk", kern, plain, hi_w, lo_w,
+                 s_w, stats)
+    res.update(case="misaligned_walk", members_equal_alone=_members_alone(
+        "matvec_cols", "misaligned walk", kern, hi_w, lo_w, s_w))
+    cases.append(res)
 
     threaded = _threads_check(CK, rng, dev)
     KERNEL_STATS.update(stats)
@@ -3493,7 +3555,8 @@ def main() -> int:
         "matvec_cols": "longcallr_tpu/phasing/pallas_kernels.py:230",
     }
     keep = lambda d: {f: d[f] for f in d if f.endswith("ms")
-                      or f.startswith(("bound", "share", "warm"))}
+                      or f.startswith(("bound", "share", "warm", "path",
+                                       "vs_library", "vs_strip"))}
     shape_of = {label: list(_launch_key(shape))
                 for shape, label in TIMED.items()}
     kernels = []

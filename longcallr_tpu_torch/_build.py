@@ -62,6 +62,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.split_matvec_cols.restype = i
     lib.split_matvec_cols.argtypes = [vp, vp, i, vp, vp, vp, vp, i, i, i, i,
                                       i, i, i, vp]
+    lib.split_matvec_cols_walk.restype = i
+    lib.split_matvec_cols_walk.argtypes = [vp, vp, i, vp, vp, i, i, i, i, i,
+                                           i, i, i, i, i, i, i, i, vp]
     lib.round_draws.restype = i
     lib.round_draws.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
     lib.graph_kernel_nodes.restype = i

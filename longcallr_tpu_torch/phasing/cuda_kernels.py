@@ -34,13 +34,29 @@ which go in as many launches as that takes, inside the C entry points.
 table). The order of a member's sum depends on I alone, so a member's
 result among g members of a table equals its result alone, bit for bit.
 
+``matvec_cols`` has two kernels, chosen by the table's width alone
+(``cols_path``). Up to COLS_WALK_MAX_I columns, at every number of members
+per table, the walk: a block walks a chunk of one table's members and
+streams the table through shared memory once (bulk copies, the next stage
+in flight while one is widened and summed), each thread on 2 columns of up
+to 4 members; a launch of one member a block (one member per table) takes
+the direct form: a cluster of up to 16 CTAs splits the member's rows, each
+CTA copying its stage in with bulk copies a tile and summing it from the
+raw rows. ``cols_walk_plan`` picks the launch shape. A
+member's sum is its 16-row chains (each an fma chain from 0) added into
+64-row tiles and the tiles into the sum, in row order, whatever the plan or
+the form, so its result among g members equals its result alone, bit for
+bit. Wider tables (the deep and stream buckets, one member per table) keep
+the strip: one block per column block, K chunk and member, the K chunks
+combined in chunk order (``cols_plan``).
+
 A call costs little beside its kernel: dtype, shape, device and contiguity
 are checked, but contiguous operands are not copied, no device context is
 entered (the C entry point selects the device) and the only allocation is
 the result. A strided or broadcast operand is first made contiguous.
 
-``matvec_cols`` needs scratch on the card when K is cut into chunks: the
-chunks' partial sums and one ticket per column block. It is kept per
+The strip needs scratch on the card when K is cut into chunks: the
+chunks' partial sums and one ticket per column block (the walk needs none). It is kept per
 (device, stream) in ``_WORKSPACES`` and reused by every call, which is safe
 because launches on one stream run in order: two host threads that share a
 stream share a workspace and their kernels serialise; threads on different
@@ -109,8 +125,9 @@ _count_lock = threading.Lock()
 _launch_row = threading.local()
 _recorded = threading.local()
 
-# the cols kernel's block: 256 threads, 4 rows in flight per thread, at most
-# 1024 rows of σ staged per block (csrc/split_matvec.cu)
+# the cols strip's block (cols_kernel, I > 32): 256 threads, 4 rows in
+# flight per thread, at most 1024 rows of σ staged per block
+# (csrc/split_matvec.cu)
 COLS_THREADS = 256
 COLS_UNROLL = 4
 COLS_MAX_CHUNK = 1024
@@ -137,6 +154,54 @@ ROWS_BLOCKS_PER_SM = 1
 # CUDA's limit on the grid's second and third dimension (the cols kernel's K
 # chunks lie on the second)
 _GRID_YZ_MAX = 65535
+# the cols walk (csrc/split_matvec.cu cols_walk_kernel) takes tables of up
+# to COLS_WALK_MAX_I columns, at every number of members per table: a
+# member's sum then runs in one order whether it is alone on its table or
+# among g; wider tables keep the strip (cols_kernel). One member per table
+# takes the walk's direct form: on an H100 at 700 W, 4.20 / 4.47 µs warm /
+# cold at (1, 4096, 16; 1) against the strip's 5.60 / 5.97, 4.05 / 4.53 at
+# (5, 2048, 32; 1) against 5.22 / 5.95, ahead at every one-member shape
+# timed but (1, 4096, 32; 1): 5.71 / 6.03 against 5.16 / 5.87, a cluster's
+# 16 CTAs against the strip's 32 (experiments/torch_cols_variants.py
+# --one-member)
+COLS_WALK_MAX_I = 32
+# the walk's order: a member's chains of 16 rows, each summed from 0, are
+# added in row order into tiles of 64 rows, the tiles in row order
+COLS_WALK_CHAIN = 16
+COLS_WALK_TILE = 64
+# most threads of a walk block; stage buffers a block aims for (one summed,
+# the others in flight)
+COLS_WALK_THREADS = 256
+COLS_WALK_BUFS = 2
+# fewest members a block of the walk takes where the table has them (a
+# table of fewer members is one block)
+COLS_WALK_MIN_MEMBERS = 8
+# blocks per SM the walk grid aims for when it cuts a table's members into
+# chunks (each chunk reads the table once): on an H100 half the members a
+# block took 12.8 µs at (4, 512, 16; 512) against 9.0 µs
+# (experiments/torch_cols_variants.py)
+COLS_WALK_BLOCKS_PER_SM = 1
+# rows a stage aims for (whole tiles) where K does not fit one stage: 256
+# rows in 2 buffers was the best of 64 to 512 rows in 1 to 3 buffers at the
+# transcriptome input's shapes (the same script)
+COLS_WALK_STAGE_ROWS = 256
+# dynamic shared memory a block may have on an H100 (227 KB)
+MAX_DYN_SHARED = 232448
+# the direct form (one member a block): most CTAs of a cluster (more than 8
+# is not portable, and is allowed on the kernel), and its static shared
+# memory: a chain's partials a thread, a round's tiles a cluster and an
+# mbarrier a tile of a stage
+COLS_WALK_MAX_CLUSTER = 16
+# members in all, for each SM, up to which the direct form serves a call
+# even where members share a table (each member reads its table alone): on
+# an H100 at 700 W, (1, 512, 8; 64) 3.68 / 4.27 µs warm / cold against the
+# staged walk's 5.00 / 5.45 and the strip's 3.77 / 4.55; at 256 members,
+# (4, 512, 8; 64), 5.57 / 5.96 against the staged walk's 5.07 / 5.63
+# (experiments/torch_cols_variants.py --walk-only --no-sweep)
+COLS_WALK_DIRECT_MEMBERS_PER_SM = 1
+COLS_WALK_DIRECT_STATIC = 8 * (2 * COLS_WALK_THREADS
+                               + COLS_WALK_MAX_CLUSTER * COLS_WALK_THREADS // 2
+                               + COLS_WALK_THREADS // 4)
 
 
 def reset_launches() -> None:
@@ -381,6 +446,139 @@ def cols_plan(B: int, K: int, I: int, aligned: bool, n_sm: int
     return vec, tx_log2, kc, ncb, -(-K // kc)
 
 
+def _even(n: int) -> int:
+    return n + (n & 1)
+
+
+def _walk_stage_rows(K: int, stage_tiles: int) -> int:
+    """Rows of a walk stage (``WalkLayout``): stage_tiles tiles, or K itself
+    (rounded up to even) where one stage holds it."""
+    sr = stage_tiles * COLS_WALK_TILE
+    return sr if K > sr else _even(K)
+
+
+def _walk_layout_bytes(K: int, I: int, mb: int, ways: int,
+                       stage_tiles: int, bufs: int,
+                       widened: bool = True) -> int:
+    """Bytes of ``WalkLayout`` (csrc/split_matvec.cu): the stage's rows
+    widened to f64 (where ``widened``), the chain partials where the block
+    has more than one way, and per stage buffer (no more than there are
+    stages) the members' σ, the raw f32 rows and an mbarrier."""
+    sr = _walk_stage_rows(K, stage_tiles)
+    nb = min(bufs, -(-K // sr))
+    chains = stage_tiles * (COLS_WALK_TILE // COLS_WALK_CHAIN)
+    doubles = _even(sr * I) if widened else 0
+    if ways > 1:
+        doubles += _even(chains * (mb * I + 2))
+    doubles += nb * (mb * (sr + 2) + _even(sr * I)) + _even(nb)
+    return 8 * doubles
+
+
+def cols_walk_shared_bytes(K: int, I: int, mb: int, ways: int,
+                           stage_tiles: int, bufs: int) -> int:
+    """Shared memory of one walk block. Staged (mb > 1): its
+    ``WalkLayout``, all dynamic. Direct (mb = 1): the layout of one buffer
+    of a stage of ``ways`` chains, with no widened copy, and beside it the
+    static arrays of the chains' partials and a cluster's tiles
+    (COLS_WALK_DIRECT_STATIC)."""
+    if mb == 1:
+        per_tile = COLS_WALK_TILE // COLS_WALK_CHAIN
+        return COLS_WALK_DIRECT_STATIC + _walk_layout_bytes(
+            K, I, 1, 1, ways // per_tile, 1, widened=False)
+    return _walk_layout_bytes(K, I, mb, ways, stage_tiles, bufs)
+
+
+def cols_walk_threads(I: int, vec: int, rm: int, mb: int, ways: int) -> int:
+    """Threads of one walk block: ways (chains at once) by the members'
+    groups (mb / rm; one in the direct form) by column groups."""
+    return ways * (1 if mb == 1 else mb // rm) * (I // vec)
+
+
+def cols_path(I: int) -> str:
+    """The cols kernel that serves tables of I columns: "walk" or
+    "strip"."""
+    return "walk" if I <= COLS_WALK_MAX_I else "strip"
+
+
+def _cols_direct_plan(members: int, K: int, I: int, n_sm: int
+                      ) -> Tuple[int, int, int, int, int, int, int]:
+    """The direct form's launch shape for ``members`` members in all:
+    clusters of up to COLS_WALK_MAX_CLUSTER CTAs a member, as many as keep
+    a tile a CTA and all the clusters on the card at once; a stage of the member's chains a
+    CTA, as many as a round of the cluster's stages covers K with where the
+    block's threads and shared memory allow; a column a thread, or 2 where
+    a column a thread would take more than one round."""
+    per_tile = COLS_WALK_TILE // COLS_WALK_CHAIN
+    chains = -(-K // COLS_WALK_CHAIN)
+    most = lambda v: COLS_WALK_THREADS // (I // v) // per_tile * per_tile
+    vec = 2 if (I % 2 == 0
+                and chains > COLS_WALK_MAX_CLUSTER * most(1)) else 1
+    cl = 1
+    while (cl < COLS_WALK_MAX_CLUSTER and 2 * cl * members <= n_sm
+           and -(-chains // (2 * cl)) >= per_tile):
+        cl *= 2
+    ways = max(per_tile, min(-(-chains // (cl * per_tile)) * per_tile,
+                             most(vec)))
+    while (ways > per_tile and cols_walk_shared_bytes(K, I, 1, ways, 1, 1)
+           > MAX_DYN_SHARED):
+        ways -= per_tile
+    return vec, 1, 1, ways, 1, 1, cl
+
+
+@functools.lru_cache(maxsize=4096)
+def cols_walk_plan(tables: int, K: int, I: int, g: int, n_sm: int
+                   ) -> Tuple[int, int, int, int, int, int, int]:
+    """Launch shape of the cols walk for one call: (columns per thread,
+    members per thread, members a block walks, ways, tiles a stage, stage
+    buffers, CTAs a cluster).
+
+    A table's g members are cut into chunks, a block each, until the grid
+    has about COLS_WALK_BLOCKS_PER_SM blocks for each of the card's
+    ``n_sm`` SMs, with COLS_WALK_MIN_MEMBERS members a block at least
+    where the table has them. A thread keeps 2 columns of up to 4
+    members, which share each row it reads; ways, each summing other
+    chains of 16 rows of a stage, fill the block's COLS_WALK_THREADS
+    threads; a stage is all of K where shared memory holds it, else
+    COLS_WALK_STAGE_ROWS rows in COLS_WALK_BUFS buffers (fewer where
+    shared memory is short). Where a block would walk one member, or the
+    call has no more members than COLS_WALK_DIRECT_MEMBERS_PER_SM for each
+    SM, the direct form serves every member alone (``_cols_direct_plan``). None of it changes a member's order of
+    summation, which COLS_WALK_CHAIN and COLS_WALK_TILE alone set."""
+    vec = 2 if I % 2 == 0 else 1
+    cg = I // vec
+    per_tile = COLS_WALK_TILE // COLS_WALK_CHAIN
+    chains = -(-K // COLS_WALK_CHAIN)
+    chunks_wanted = max(1, COLS_WALK_BLOCKS_PER_SM * n_sm // max(1, tables))
+    mb = max(-(-g // chunks_wanted), min(g, COLS_WALK_MIN_MEMBERS))
+    if mb == 1 or tables * g <= COLS_WALK_DIRECT_MEMBERS_PER_SM * n_sm:
+        return _cols_direct_plan(tables * g, K, I, n_sm)
+    mb = min(mb, COLS_WALK_THREADS // cg)
+    # all of K in one stage where shared memory holds it, else stages of
+    # COLS_WALK_STAGE_ROWS in COLS_WALK_BUFS buffers
+    tiles = -(-K // COLS_WALK_TILE)
+    one = cols_walk_shared_bytes(K, I, mb, min(chains, per_tile * tiles),
+                                 tiles, 1) <= MAX_DYN_SHARED
+    stage_tiles = tiles if one else max(1, min(
+        tiles, COLS_WALK_STAGE_ROWS // COLS_WALK_TILE))
+    ways_max = min(per_tile * stage_tiles, chains)
+    # the most members a thread whose block still has 128 threads
+    rm = next((r for r in (4, 2) if mb % r == 0
+               and ways_max * (mb // r) * cg >= 128), 1)
+    ways = max(1, min(ways_max, COLS_WALK_THREADS // ((mb // rm) * cg)))
+    bufs = 1 if one else COLS_WALK_BUFS
+    while cols_walk_shared_bytes(K, I, mb, ways, stage_tiles,
+                                 bufs) > MAX_DYN_SHARED:
+        if bufs > 1:                # fewer buffers, then tiles a stage
+            bufs -= 1
+        elif stage_tiles > 1:
+            stage_tiles -= 1
+            ways = min(ways, per_tile * stage_tiles)
+        else:
+            mb //= 2
+            rm = 1 if mb % rm else rm
+    return vec, rm, mb, ways, stage_tiles, bufs, 1
+
+
 _SM_COUNT: Dict[int, int] = {}
 # (device index, stream handle) → [partial f64, tickets int32]; see the
 # module docstring for why sharing per stream is safe
@@ -475,20 +673,54 @@ def matvec_cols(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
                 members_per_table=None) -> torch.Tensor:
     """``sᵀ (hi + lo)`` → [..., I] float64. hi/lo [K,I] or [B,K,I] float32;
     s [K], [B,K] or [B,C,K] float64 (see ``_operands``)."""
-    M, g, sc, lead = _operands(hi, lo, s, 1, members_per_table)
     if hi.device.type == "cpu":
+        _operands(hi, lo, s, 1, members_per_table)
         return matvec_cols_plain(hi, lo, s, members_per_table)
+    return _cols_on_card(hi, lo, s, members_per_table,
+                         cols_path(hi.shape[-1]), True)
+
+
+def cols_strip(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
+               members_per_table=None) -> torch.Tensor:
+    """``matvec_cols`` by the strip (``cols_kernel``) at any width, also
+    where the walk serves (I <= COLS_WALK_MAX_I): the design those shapes
+    had before the walk, kept to time the walk against on the same inputs.
+    The port's path never calls it, and it counts no launch."""
+    if hi.device.type != "cuda":
+        raise ValueError("cols_strip runs on a CUDA card only")
+    return _cols_on_card(hi, lo, s, members_per_table, "strip", False)
+
+
+def _cols_on_card(hi, lo, s, members_per_table, path: str,
+                  count: bool) -> torch.Tensor:
+    """One launch of the cols kernel ``path`` ("walk" or "strip") on the
+    card; the launch is counted where ``count``."""
+    M, g, sc, lead = _operands(hi, lo, s, 1, members_per_table)
     dev = _cuda_device(hi)
     K, I = hi.shape[-2], hi.shape[-1]
     out = torch.empty(lead + (I,), dtype=torch.float64, device=dev)
-    if K and I and M:
-        from .._build import load
-        hp, lp = hi.data_ptr(), lo.data_ptr()
+    if not (K and I and M):
+        return out.zero_()
+    from .._build import load
+    hp, lp = hi.data_ptr(), lo.data_ptr()
+    stream = _stream(dev)
+    if path == "walk":
+        sp = sc.data_ptr()
+        tvec = I % 4 == 0 and (hp | lp) % 16 == 0
+        svec = K % 2 == 0 and sp % 16 == 0
+        vec, rm, mb, ways, stage_tiles, bufs, cl = cols_walk_plan(
+            M // g, K, I, g, _sm_count(dev))
+        err = load().split_matvec_cols_walk(
+            hp, lp, g, sp, out.data_ptr(), M, K, I, vec, rm, mb, ways,
+            stage_tiles, bufs, cl, int(tvec), int(svec), dev.index, stream)
+        if err != 0:
+            raise RuntimeError(f"split_matvec_cols_walk launch failed: "
+                               f"cudaError {err}")
+    else:
         vec, tx_log2, kc, ncb, nch = cols_plan(
             M, K, I, (hp | lp) % 16 == 0, _sm_count(dev))
         if nch > _GRID_YZ_MAX:              # K over 67 million rows
             raise ValueError(f"{nch} K chunks exceed the kernel's grid")
-        stream = _stream(dev)
         part = tick = 0
         if nch > 1:
             ws = _workspace(dev, stream, M * nch * I, M * ncb)
@@ -499,7 +731,6 @@ def matvec_cols(hi: torch.Tensor, lo: torch.Tensor, s: torch.Tensor,
         if err != 0:
             raise RuntimeError(f"split_matvec_cols launch failed: "
                                f"cudaError {err}")
+    if count:
         _count("matvec_cols", hi, g, dev.index)
-    else:
-        out.zero_()
     return out

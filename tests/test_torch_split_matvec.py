@@ -630,3 +630,216 @@ def test_operands_accept_more_members_than_a_grid_dimension_holds():
     assert CK.dual_matvec_rows(hi, lo, x, members_per_table=1024).shape == \
         (65536, 8, 2)
     assert CK.matvec_cols(hi, lo, s).shape == (64, 1024, 16)
+
+
+# --- the cols walk: members that share a table (I <= 32) --------------------
+# A block walks mb members of one table; the table streams through shared
+# memory in stages of 64-row tiles, and each member's sum is its tiles'
+# partials (each an f64 chain from 0) added in row order. The plan decides
+# how many members a block walks, how many ways split a stage's tiles and
+# how many tiles a stage holds; none of it may change a member's order.
+
+WALK_PLAN_SHAPES = [
+    # the enumeration shapes the main path launches (tables, K, I, g)
+    (4, 512, 16, 512), (1, 1024, 16, 1024), (6, 1024, 16, 128),
+    (1, 64, 8, 8), (12, 64, 8, 16), (1, 64, 8, 16), (4, 512, 8, 64),
+    (1, 512, 8, 64), (1, 512, 16, 1024),
+    # 65,536 members in one launch, and more tables than grid.y holds
+    (64, 8, 16, 1024), (70000, 64, 8, 2),
+    # one member per table at I <= 32, odd widths, tiny I with many members
+    (4, 1024, 16, 1), (1, 100000, 16, 1), (3, 200, 24, 5), (2, 300, 30, 6),
+    (7, 100, 12, 3), (3, 50, 5, 9), (1, 8, 1, 1 << 17), (1, 8, 4, 1 << 17),
+    (2, 300, 32, 6),
+    # the first width past the walk, and the deep shapes: the strip
+    (1, 512, 33, 64), (1, 512, 33, 1), (4, 4096, 512, 1), (2, 4096, 512, 1),
+    (5, 2048, 256, 1)]
+
+
+@pytest.mark.parametrize("tables,K,I,g", WALK_PLAN_SHAPES)
+def test_cols_walk_plan_covers_every_member(tables, K, I, g):
+    """The path is the walk for I <= 32 at every g (one member alone on its
+    table takes it too, so that its sum runs in the same order as among
+    g) and the strip beyond; on the walk every member of a table falls in
+    exactly one chunk, the direct form serves one member per table and
+    calls of few members, the grid's dimensions stay within CUDA's
+    limits, a block within 256 threads and its shared memory within an
+    H100's 232,448 bytes."""
+    assert CK.cols_path(I) == ("walk" if I <= 32 else "strip")
+    if CK.cols_path(I) == "strip":
+        vec, tx_log2, kc, ncb, nch = CK.cols_plan(tables * g, K, I, True,
+                                                  132)
+        assert nch <= 65535
+        return
+    vec, rm, mb, ways, stage_tiles, bufs, cl = CK.cols_walk_plan(
+        tables, K, I, g, 132)
+    assert vec in (1, 2) and I % vec == 0
+    assert 1 <= mb <= g and ways >= 1 and cl in (1, 2, 4, 8, 16)
+    threads = CK.cols_walk_threads(I, vec, rm, mb, ways)
+    assert threads <= CK.COLS_WALK_THREADS
+    shared = CK.cols_walk_shared_bytes(K, I, mb, ways, stage_tiles, bufs)
+    assert shared <= 232448
+    per_tile = CK.COLS_WALK_TILE // CK.COLS_WALK_CHAIN
+    if mb == 1:                             # the direct form
+        assert ways % per_tile == 0
+        assert ways <= max(per_tile, per_tile * -(-K // CK.COLS_WALK_TILE))
+        # a cluster a member: g * cl CTAs on grid.x, no more than the SMs
+        assert tables * cl <= max(132, tables)
+    else:                                   # a way a chain of a stage
+        assert rm in (1, 2, 4) and mb % rm == 0
+        assert 1 <= ways <= per_tile * stage_tiles and 1 <= bufs <= 4
+        assert cl == 1 and (ways == 1 or mb * I <= 16 * threads)
+    chunks = -(-g // mb)
+    # the chunks [j*mb, (j+1)*mb) cover 0 .. g-1 once
+    covered = np.zeros(g, dtype=np.int64)
+    for j in range(chunks):
+        covered[j * mb:min(g, (j + 1) * mb)] += 1
+    assert (covered == 1).all()
+    # grid (chunks, tables a launch): chunks on x, tables 65,535 a launch
+    assert chunks <= 2 ** 31 - 1
+    launches = -(-tables // 65535)
+    assert all(min(65535, tables - t0) <= 65535
+               for t0 in range(0, tables, 65535))
+    assert launches == (2 if tables == 70000 else 1)
+    # no more chunks a table than fill the card, where shared memory and
+    # the block's threads let a block walk that many members
+    wanted = max(1, CK.COLS_WALK_BLOCKS_PER_SM * 132 // tables)
+    if mb >= -(-g // wanted):
+        assert chunks <= wanted
+    # the direct form, each member alone, for one member per table or few
+    # members in all; else a few members a block at least
+    assert (mb == 1) == (g == 1 or tables * g
+                         <= CK.COLS_WALK_DIRECT_MEMBERS_PER_SM * 132)
+    if 1 < mb < g:
+        assert mb >= min(g, CK.COLS_WALK_MIN_MEMBERS)
+
+
+def _chain(dp, s, mem, t, k0, k1):
+    """One chain's partial: rows k0 .. k1-1 in order from 0."""
+    c = np.zeros((len(mem), dp.shape[2]))
+    for k in range(k0, k1):
+        c = c + s[mem, k][:, None] * dp[t, k]
+    return c
+
+
+def _walk_emulate(dp, s, g, plan, stage_rows=None):
+    """The walk's arithmetic on the CPU, as its kernels run it.
+
+    Staged (mb > 1), per chunk of mb members: stages of SR rows (the
+    kernel's WalkLayout: stage_tiles tiles, or K rounded up to even where
+    one stage holds K; ``stage_rows`` sets another SR); way w sums the
+    stage's chains w, w + ways, ... of 16 rows. With one way the thread
+    adds each chain into its tile and the tile into its sum at a tile's
+    last chain or the stage's; with more, the chains' partials go to
+    shared memory and each sum is folded from there, a tile's 4 chains at
+    a time. Direct (mb = 1): rounds of cl * ways chains; thread w of CTA r
+    sums chain q + r * ways + w, the tile's first thread adds the tile's
+    chains, and CTA 0 adds the round's tiles in (CTA, tile) order. σ holds
+    -1, 0, 1, so each product is exact and ``c + s*d`` rounds once, as the
+    kernels' fma does."""
+    _, _, mb, ways, stage_tiles, _, cl = plan
+    tables, K, I = dp.shape
+    C = CK.COLS_WALK_CHAIN
+    per = CK.COLS_WALK_TILE // C
+    out = np.zeros((tables * g, I))
+    for t in range(tables):
+        for j0 in range(0, g, mb):
+            mem = np.arange(t * g + j0, t * g + min(g, j0 + mb))
+            zero = np.zeros((len(mem), I))
+            tot = zero
+            chain = lambda x: _chain(dp, s, mem, t, x * C, min(K, x * C + C))
+            if mb == 1:
+                n_chains = -(-K // C)
+                tpc = ways // per
+                for q in range(0, n_chains, cl * ways):
+                    tp = {}
+                    for r in range(cl):
+                        base = q + r * ways
+                        pt = {w: chain(base + w) for w in range(ways)
+                              if base + w < n_chains}
+                        for w in range(0, ways, per):
+                            if base + w >= n_chains:
+                                continue
+                            tile = zero
+                            for x in range(w, min(w + per,
+                                                  w + n_chains - base - w)):
+                                tile = tile + pt[x]
+                            tp[r * tpc + w // per] = tile
+                    for u in range(min(-(-(n_chains - q) // per), cl * tpc)):
+                        tot = tot + tp[u]
+                out[mem] = tot
+                continue
+            sr = stage_rows or CK._walk_stage_rows(K, stage_tiles)
+            for r0 in range(0, K, sr):
+                chains = -(-min(sr, K - r0) // C)
+                parts = [_chain(dp, s, mem, t, r0 + x * C,
+                                min(K, r0 + x * C + C))
+                         for x in range(chains)]
+                if ways == 1:
+                    tile = zero
+                    for x in range(chains):
+                        tile = tile + parts[x]
+                        if x % per == per - 1 or x == chains - 1:
+                            tot, tile = tot + tile, zero
+                else:
+                    for x0 in range(0, chains, per):
+                        tile = zero
+                        for p in parts[x0:x0 + per]:
+                            tile = tile + p
+                        tot = tot + tile
+            out[mem] = tot
+    return out
+
+
+def _walk_case(rng, tables, K, I, g):
+    _, hi, lo = _split(rng, (tables, K, I))
+    dp = hi.astype(np.float64) + lo.astype(np.float64)
+    s = rng.integers(-1, 2, size=(tables * g, K)).astype(np.float64)
+    s[:, ::5] = 0.0
+    s[: g // 2, K // 3:] = 0.0              # whole tiles of σ = 0
+    return dp, s
+
+
+@pytest.mark.parametrize("tables,K,I,g", [
+    (4, 512, 16, 64), (1, 1024, 16, 1024), (6, 1024, 16, 128),
+    (1, 64, 8, 8), (12, 64, 8, 16), (3, 200, 24, 5), (2, 700, 12, 40),
+    (8, 8, 16, 1024)])
+def test_cols_walk_order_is_the_same_for_any_tables_and_g(rng, tables, K,
+                                                          I, g):
+    """A member's walk result depends on K and I alone: its plan among g
+    members of a bucket of tables, alone on its table (the direct form),
+    and other block shapes of either form give the same bits, within
+    1e-12 of the exact product."""
+    dp, s = _walk_case(rng, tables, K, I, g)
+    plan = CK.cols_walk_plan(tables, K, I, g, 132)
+    got = _walk_emulate(dp, s, g, plan)
+    want = np.einsum("tgk,tki->tgi", s.reshape(tables, g, K), dp)
+    assert _rel(got, want.reshape(-1, I)) <= EXACT_RTOL
+    # the same members under other block shapes: one way and several, one
+    # stage of K and stages of 1 or 3 tiles
+    for alt in ((plan[0], 1, max(2, plan[2] // 2), 2, 3, 2, 1),
+                (plan[0], 1, max(2, plan[2] // 2), 1, 1, 4, 1),
+                (plan[0], 1, max(2, plan[2]), 4, -(-K // 64), 1, 1)):
+        assert np.array_equal(_walk_emulate(dp, s, g, alt), got)
+    # members alone on their table, with the plan the wrapper gives them,
+    # and the direct form's other shapes (a round of one tile, clusters)
+    for m in sorted({0, g - 1, (tables * g) // 2, tables * g - 1}):
+        t = m // g
+        for alone_plan in (CK.cols_walk_plan(1, K, I, 1, 132),
+                           (1, 1, 1, 4, 1, 1, 1), (2, 1, 1, 8, 1, 1, 4)):
+            alone = _walk_emulate(dp[t:t + 1], s[m:m + 1], 1, alone_plan)
+            assert np.array_equal(alone[0], got[m])
+
+
+@pytest.mark.parametrize("tables,K,I,g", [
+    (1, 1024, 16, 64), (2, 700, 12, 40), (4, 512, 8, 16)])
+def test_cols_walk_emulation_sees_another_order(rng, tables, K, I, g):
+    """The emulation above can tell orders apart: stages of 96 rows, which
+    cut tiles across stages, give other bits than the walk's 64-row tiles
+    for some member (the same sum, so within 1e-12 of it)."""
+    dp, s = _walk_case(rng, tables, K, I, g)
+    plan = CK.cols_walk_plan(tables, K, I, g, 132)
+    got = _walk_emulate(dp, s, g, plan)
+    staged = (plan[0], 1, max(2, plan[2]), 4, 2, 2, 1)
+    other = _walk_emulate(dp, s, g, staged, stage_rows=96)
+    assert _rel(other, got) <= EXACT_RTOL
+    assert not np.array_equal(other, got)
