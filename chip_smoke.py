@@ -160,13 +160,31 @@ package) and fails on the first check that does not hold:
                --no-stream, 2 processes: byte-equal to a single run; the pod
                flags given in part return 2;
  14. giant   — the reads-sharded ascent driven directly (one card gives
-               reads_devices no second device): one stream region (K 2048,
-               I 256, 50 rounds) through phase_region_sharded with the card
-               twice and four times as the "reads" axis and with 2 CPU
-               shards: equal states; one sharded ascent on each: equal
-               decisions, prob within 1e-9 relative; read_sharded_snp_sums
-               on the card against the CPU at 1e-12; no hand kernel
-               launched (f64 matmul); walls beside phase_region's;
+               reads_devices no second device), a group of device programs
+               of one shard each (phasing/graphs.py, Group) that meet at the
+               exchange kernel (csrc/shard_exchange.cu): first, in a child
+               process, a group of which one shard is never launched must
+               raise within the exchange's bounded wait (WAIT_NS), not
+               hang; one stream region (K 2048, I 256, 50 rounds) through
+               phase_region_sharded with the card twice and four times as
+               the "reads" axis, device programs on and off, and with 2 CPU
+               shards: equal states (bit-equal on against off); one sharded
+               ascent on each: equal decisions, prob within 1e-9 relative
+               of the CPU's and bit-equal on against off;
+               read_sharded_snp_sums on the card against the CPU at 1e-12;
+               then the giant locus (make_deep_workload(n_regions=1,
+               coverage=2500): 66,667 reads, K 131,072 x I 512 padded cells
+               = 2^26, the routing threshold): the exchange kernel against
+               its plain version (sum_in_order) bit for bit for 2, 4 and 8
+               shards at the widths the ascent exchanges there, and its
+               time; phase_region_sharded on [card] x 2 with programs on
+               and off (bit-equal states) and on [card] x 4 with programs
+               on, each leg's wall, seconds in the ascents, builds, capture
+               and instantiate seconds, bytes held, device peaks, group
+               launches, barrier turns counted on the device, exchange
+               launches and host flag reads (0 with programs on); no
+               split-matvec kernel launched (f64 matmul); walls beside
+               phase_region's on the same inputs (recorded, not judged);
  15. stats   — perturbation_phase_stats on one deep region in split mode:
                state and prob equal perturbation_phase's, ascent trips > 0,
                both kernels and the round draws launched;
@@ -292,8 +310,10 @@ other run that counted them, its times at every shape of phase 2 under
 launched it at, each held against the plain version once more after the
 runs; the entry of ``set_condition`` its launches on the default batched
 deep run and ``launches_<run>`` for the other CLI runs, from the program
-counters), the card's name and power limit (nvidia-smi), and last the result
-line.
+counters; the entry of ``shard_exchange`` its launches on the giant locus
+through [card] x 2 with programs, the barrier turns of that region's
+ascents, and ``launches_<leg>`` for the other giant legs), the card's name
+and power limit (nvidia-smi), and last the result line.
 """
 
 from __future__ import annotations
@@ -2362,47 +2382,358 @@ def _stream_region(bam: str, fa: str, dev, contig: str = "chr1"):
     return cfg, reg, cands, frags, apply_ds
 
 
-def phase_giant(card: str, dev, stream_input) -> None:
+# the exchange of the reads-sharded ascent (csrc/shard_exchange.cu): its
+# check and times (``_exchange_kernel``), read by the kernel summary
+EXCHANGE: dict = {}
+# the giant locus' legs by label (``_sharded_leg``), for the summary
+GIANT_RUNS: dict = {}
+# the giant locus: the deep workload's locus shape at 2,500x, whose padded
+# cells (K 131,072 x I 512 = 2^26) reach LONGCALLR_GIANT_CELLS
+GIANT_COVERAGE = 2500
+EXCHANGE_TIMED = 400
+
+
+def _exchange_widths(I: int) -> dict:
+    """The partials the sharded ascent exchanges at I SNP columns: (f64
+    words, int64 words) of the prologue's column sums, a trip's dpᵀσ and
+    flip count, and the objective."""
+    return {"columns": (3 * I, I), "trip": (I, 1), "objective": (1, 0)}
+
+
+def _exchange_round(CX, box, streams, parts, totals) -> None:
+    """Every shard's side of one exchange, each on its own stream."""
+    for s, st in enumerate(streams):
+        with torch.cuda.stream(st):
+            CX.exchange(box, s, *parts[s], *totals[s])
+
+
+def _exchange_kernel(dev, I: int) -> dict:
+    """The exchange kernel against its plain version (``sum_in_order``),
+    bit for bit, for 2, 4 and 8 shards on the card at the widths the
+    ascent exchanges at I columns (random f64 partials of mixed magnitudes
+    and int64 counts; 3 exchanges in a row, so both halves of the buffers
+    serve); then the time of one trip's exchange of 2 shards (all shards'
+    launches between CUDA events over EXCHANGE_TIMED exchanges), the plain
+    sum's, and the bound: bytes / 3.35 TB/s (each shard reads its partial
+    once, writes it into every shard's slot, reads every slot once and
+    writes its total; the flags written and read)."""
+    from longcallr_tpu_torch.phasing import cuda_exchange as CX
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+
+    rng = np.random.default_rng(20261021)
+    err, checked = 0.0, []
+    for n in (2, 4, 8):
+        for name, (wf, wi) in _exchange_widths(I).items():
+            box = CX.ShardExchange([dev] * n, 4 * I)
+            streams = [torch.cuda.Stream(dev) for _ in range(n)]
+            for _ in range(3):
+                parts = [(torch.as_tensor(rng.standard_normal(wf) * 10.0 **
+                                          rng.integers(-8, 9, wf),
+                                          device=dev),
+                          torch.as_tensor(rng.integers(-2**40, 2**40, wi),
+                                          device=dev) if wi else None)
+                         for _ in range(n)]
+                totals = [tuple(None if p is None else torch.empty_like(p)
+                                for p in pt) for pt in parts]
+                for st in streams:
+                    st.wait_stream(torch.cuda.current_stream(dev))
+                _exchange_round(CX, box, streams, parts, totals)
+                for st in streams:
+                    torch.cuda.current_stream(dev).wait_stream(st)
+                for k in range(2 if wi else 1):
+                    want = CX.sum_in_order([pt[k] for pt in parts], dev)
+                    for tot in totals:
+                        if not torch.equal(tot[k], want):
+                            raise AssertionError(
+                                f"shard_exchange {n} shards, {name}: a "
+                                f"total differs from sum_in_order")
+                        err = max(err, float((tot[k] - want).abs().max()))
+            turns = [int(st[1]) for st in box.state]
+            if turns != [3] * n:
+                raise AssertionError(f"shard_exchange: barrier turns {turns}")
+            checked.append([n, name, wf, wi])
+    # the time of a trip's exchange of two shards
+    n, (wf, wi) = 2, _exchange_widths(I)["trip"]
+    box = CX.ShardExchange([dev] * n, 4 * I)
+    streams = [torch.cuda.Stream(dev) for _ in range(n)]
+    parts = [(torch.randn(wf, dtype=torch.float64, device=dev),
+              torch.ones(wi, dtype=torch.int64, device=dev))
+             for _ in range(n)]
+    totals = [tuple(torch.empty_like(p) for p in pt) for pt in parts]
+
+    def timed(work, reps: int, captured: bool) -> float:
+        """Per-turn ms of ``work`` ((stream, fn) pairs, run at once, one
+        a stream) between CUDA events; captured (``reps`` calls of fn in
+        one graph a stream) it is the device's time, else the host's
+        launches are in it."""
+        cur = torch.cuda.current_stream(dev)
+
+        def run(go):
+            for st, _ in work:
+                st.wait_stream(cur)
+            for st, x in zip((st for st, _ in work), go):
+                with torch.cuda.stream(st):
+                    x()
+            for st, _ in work:
+                cur.wait_stream(st)
+
+        if captured:
+            graphs = []
+            with CK.recording():            # not launches of the main path
+                for st, fn in work:
+                    g = torch.cuda.CUDAGraph()
+                    st.wait_stream(cur)
+                    with torch.cuda.stream(st):
+                        g.capture_begin()
+                        for _ in range(reps):
+                            fn()
+                        g.capture_end()
+                    graphs.append(g)
+            go, calls = [g.replay for g in graphs], 1
+        else:
+            go, calls = [fn for _, fn in work], reps
+        run(go)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(calls):
+            run(go)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    sides = [(st, lambda s=s: CX.exchange(box, s, *parts[s], *totals[s]))
+             for s, st in enumerate(streams)]
+    plain = [(streams[0], lambda: [CX.sum_in_order(
+        [pt[k] for pt in parts], dev) for k in range(2)])]
+    turn_ms = timed(sides, EXCHANGE_TIMED, captured=False)
+    ms = timed(sides, EXCHANGE_TIMED, captured=True)
+    plain_ms = timed(plain, EXCHANGE_TIMED, captured=True)
+    w = wf + wi
+    bound_bytes = n * (w * 8 * (2 + 2 * n) + 2 * n * 8)
+    EXCHANGE.update(max_abs_err=err, checked=checked, shards_timed=n,
+                    width_timed=[wf, wi], ms=ms, ms_by="CUDA events over "
+                    f"{EXCHANGE_TIMED} exchanges captured in one graph a "
+                    "shard, the shards' graphs run at once",
+                    turn_ms=turn_ms, turn_ms_by="the same launched one by "
+                    "one through the wrapper", plain_ms=plain_ms,
+                    plain_ms_by="the plain sums of a turn, captured the "
+                    "same way", bound_bytes=bound_bytes,
+                    bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
+                    bound_by="bytes", library_ms=None)
+    return dict(EXCHANGE)
+
+
+_BOUNDED_WAIT = r"""
+import json, os, time
+import numpy as np, torch
+from longcallr_tpu_torch import _build
+from longcallr_tpu_torch.parallel import mesh as M
+from longcallr_tpu_torch.phasing import cuda_exchange as CX
+from longcallr_tpu_torch.phasing import graphs as G
+dev = torch.device("cuda", 0)
+r = np.random.default_rng(1)
+K, I = 256, 16
+p8 = r.choice([-1, 0, 1], size=(K, I)).astype(np.int8)
+q8 = r.integers(3, 31, size=(K, I)).astype(np.uint8)
+rb, sm = np.ones(K, bool), np.ones(I, bool)
+sh = M.shard_cells([dev, dev], p8, q8, rb, sm)
+M.sharded_ascent(sh, np.where(r.random(K) < .5, -1., 1.), np.ones(I),
+                 np.zeros(I), sm, np.zeros(I, bool), False, True)
+group = next(s.prog for k, s in G._CACHE.items() if k[0] == "sharded")
+stream = group.streams[0]
+out = {"wait_ns": CX.WAIT_NS}
+t0 = time.monotonic()
+try:
+    # shard 0's program alone: shard 1 never arrives at the exchange
+    err = _build.load().gp_launch(group.progs[0]._exec, 0,
+                                  stream.cuda_stream)
+    out["launch_error"] = err
+    stream.synchronize()
+    out["raised"] = False
+except RuntimeError as e:
+    out.update(raised=True, error=str(e).splitlines()[0][:200])
+out["seconds"] = time.monotonic() - t0
+print(json.dumps(out), flush=True)
+os._exit(0)
+"""
+
+
+def _bounded_wait() -> dict:
+    """A group of which one shard is never launched, in a child process:
+    the other shard's exchange waits CX.WAIT_NS of the device clock and
+    traps; the child's sync raises, well within the bound plus a margin,
+    and the parent reads the error (a hang would meet the parent's
+    timeout, and fail)."""
+    from longcallr_tpu_torch.phasing import cuda_exchange as CX
+
+    bound_s = CX.WAIT_NS / 1e9
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "-c", _BOUNDED_WAIT], cwd=HERE,
+                         capture_output=True, text=True,
+                         timeout=bound_s + 120)
+    wall = time.monotonic() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        raise AssertionError(f"bounded wait: the child printed nothing "
+                             f"(rc {res.returncode}): {res.stderr[-800:]}")
+    out = json.loads(lines[-1])
+    if not out.get("raised") or not out["seconds"] < bound_s + 20:
+        raise AssertionError(f"bounded wait: {out}")
+    out.update(child_wall_seconds=wall, child_rc=res.returncode)
+    return out
+
+
+def _giant_locus(tmp: str, dev):
+    """The giant locus (make_deep_workload(n_regions=1, coverage=2,500))
+    prepared on the card: (cfg, region, cands, frags, apply_ds, seconds to
+    generate, seconds to prepare)."""
+    from longcallr_tpu_torch.utils.bench_workload import make_deep_workload
+
+    bam = os.path.join(tmp, "giant.bam")
+    fa = os.path.join(tmp, "giant.fa")
+    t0 = time.monotonic()
+    params = make_deep_workload(bam, fa, n_regions=1,
+                                coverage=GIANT_COVERAGE)
+    t1 = time.monotonic()
+    locus = _stream_region(bam, fa, dev, contig=params["contig"])
+    return (*locus, t1 - t0, time.monotonic() - t1)
+
+
+def _sharded_leg(label: str, locus, devs, programs: bool):
+    """phase_region_sharded of ``locus`` over ``devs`` with the device
+    programs on or off: (the state, the leg's numbers). The counters are
+    reset just before and read just after; the seconds of the ascents are
+    the host's time in sharded_ascent (launch to sync, as region_phase
+    counts a region's programs)."""
+    from longcallr_tpu_torch.parallel import giant, mesh as M
+    from longcallr_tpu_torch.phasing import cuda_exchange as CX
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
+
+    cfg, reg, cands, frags, apply_ds = locus[:5]
+    orig, spent = M.sharded_ascent, []
+
+    def timed(*a, **kw):
+        t = time.monotonic()
+        try:
+            return orig(*a, **kw)
+        finally:
+            spent.append(time.monotonic() - t)
+
+    dev = devs[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    CK.reset_launches()
+    G.reset_builds()
+    G.ENABLED = programs
+    M.sharded_ascent = timed
+    try:
+        t0 = time.monotonic()
+        st = giant.phase_region_sharded(frags, cands, cfg, reg.start,
+                                        apply_ds, devs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        M.sharded_ascent = orig
+        G.ENABLED = True
+    n = len(devs)
+    leg = dict(shards=n, programs=programs, wall_seconds=wall,
+               ascents=len(spent), ascent_seconds=sum(spent),
+               builds=CK.GRAPHS["builds"],
+               capture_seconds=CK.GRAPHS["capture_seconds"],
+               instantiate_seconds=CK.GRAPHS["instantiate_seconds"],
+               bytes_held=CK.GRAPHS["bytes_held"],
+               device_peak_bytes=torch.cuda.max_memory_allocated(dev),
+               device_peak_above_start=torch.cuda.max_memory_allocated(dev)
+               - base,
+               group_launches=CK.GROUPS["launches"],
+               barrier_turns=CK.GROUPS["barrier_turns"],
+               exchange_launches=CX.EXCHANGE_LAUNCHES["shard_exchange"],
+               body_runs=CK.GRAPHS["body_runs"],
+               condition_sets=CK.GRAPHS["condition_sets"],
+               flag_reads=CK.GRAPHS["flag_reads"],
+               hand_kernel_launches=dict(CK.LAUNCHES),
+               cached_after=sum(k[0] == "sharded" for k in G._CACHE))
+    if any(CK.LAUNCHES.values()):
+        raise AssertionError(f"giant {label}: the sharded ascent launched a "
+                             f"hand kernel: {CK.LAUNCHES}")
+    if leg["exchange_launches"] <= 0 or leg["cached_after"]:
+        raise AssertionError(f"giant {label}: {leg}")
+    if programs:
+        # no host flag read; each shard's trips in its WHILE node, its
+        # barrier turns (checked against its body runs at every launch)
+        # as many as its exchange launches
+        if (leg["flag_reads"] or leg["group_launches"] != len(spent)
+                or leg["builds"] != 2
+                or leg["barrier_turns"] != leg["exchange_launches"]
+                or leg["condition_sets"] != leg["body_runs"] + n * len(spent)):
+            raise AssertionError(f"giant {label}: {leg}")
+    elif leg["group_launches"] or leg["builds"] or leg["flag_reads"] <= 0:
+        raise AssertionError(f"giant {label}: {leg}")
+    return st, leg
+
+
+def _states_equal(what: str, a, b) -> None:
+    for x, y, f in zip(a, b, ("sigma", "delta", "eta")):
+        if not np.array_equal(np.asarray(x), np.asarray(y)):
+            raise AssertionError(f"{what}: {f} differs")
+
+
+def phase_giant(card: str, dev, tmp: str, stream_input) -> None:
     """The reads-sharded ascent of giant regions, driven directly (one card
-    gives reads_devices no second device): one region of the stream input
-    through phase_region_sharded with [card] x 2 and x 4 as the "reads"
-    axis and with 2 CPU shards: the same states. One ascent of it through
-    sharded_cross_optimize on those meshes: the same decisions, prob within
-    1e-9 relative; read_sharded_snp_sums on the card against its CPU run at
-    1e-12 relative. The sharded path launches no hand kernel (f64 matmul,
-    as in the JAX package). Its wall stands beside phase_region's for the
-    region on the card (recorded, not judged)."""
+    gives reads_devices no second device), a group of device programs, one
+    per shard. The exchange kernel against its plain version
+    (``_exchange_kernel``) and the bounded wait (``_bounded_wait``). One
+    region of the stream input through phase_region_sharded with [card] x 2
+    and x 4 as the "reads" axis, programs on and off, and with 2 CPU
+    shards: the same states (bit-equal on against off). One ascent of it
+    through sharded_cross_optimize on those meshes: the same decisions,
+    prob within 1e-9 relative of the CPU's and bit-equal on against off;
+    read_sharded_snp_sums on the card against its CPU run at 1e-12
+    relative. The giant locus (K 131,072 x I 512 padded cells = 2^26)
+    through phase_region_sharded on [card] x 2 with programs on and off
+    (bit-equal states) and on [card] x 4 with programs on, each leg's
+    numbers (``_sharded_leg``). The sharded path launches no hand kernel
+    (f64 matmul, as in the JAX package). Walls stand beside phase_region's
+    on the same inputs (recorded, not judged)."""
     from longcallr_tpu_torch.parallel import giant, mesh as M
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
     from longcallr_tpu_torch.phasing import optimize as O
     from longcallr_tpu_torch.phasing.kernels import make_cell_tables_np
 
+    bound = _bounded_wait()
     bam, fa = stream_input[:2]
-    cfg, reg, cands, frags, apply_ds = _stream_region(bam, fa, dev)
+    locus = _stream_region(bam, fa, dev)
+    cfg, reg, cands, frags, apply_ds = locus
     K0, I0 = frags.p.shape
     K, I_pad = O._bucket(K0), O._bucket(I0)
     cpu = torch.device("cpu")
     meshes = {"card_x2": [dev] * 2, "card_x4": [dev] * 4, "cpu_x2": [cpu] * 2}
-    states, walls = {}, {}
-    CK.reset_launches()
+    states, walls, legs = {}, {}, {}
     for name, devs in meshes.items():
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        states[name] = giant.phase_region_sharded(frags, cands, cfg,
-                                                  reg.start, apply_ds, devs)
-        torch.cuda.synchronize()
-        walls[name] = time.monotonic() - t0
-    if any(CK.LAUNCHES.values()):
-        raise AssertionError(f"the sharded ascent launched a hand kernel: "
-                             f"{CK.LAUNCHES}")
+        on_card = devs[0].type == "cuda"
+        for programs in ((True, False) if on_card else (True,)):
+            label = name if programs else f"{name}_off"
+            if on_card:
+                states[label], legs[label] = _sharded_leg(
+                    f"stream region {label}", locus, devs, programs)
+                walls[label] = legs[label]["wall_seconds"]
+                continue
+            t0 = time.monotonic()
+            states[label] = giant.phase_region_sharded(
+                frags, cands, cfg, reg.start, apply_ds, devs)
+            walls[label] = time.monotonic() - t0
     for name in ("card_x2", "card_x4"):
-        for a, b, f in zip(states[name], states["cpu_x2"], "sigma delta eta"
-                           .split()):
-            if not np.array_equal(a, b):
-                raise AssertionError(f"giant {name}: {f} differs from the "
-                                     f"CPU shards")
+        _states_equal(f"giant {name}, programs on against off",
+                      states[name], states[f"{name}_off"])
+        _states_equal(f"giant {name} against the CPU shards", states[name],
+                      states["cpu_x2"])
 
-    # one ascent, with its objective, on each mesh
+    # one ascent, with its objective, on each mesh (programs on and off)
     rng = np.random.default_rng(20261019)
     p8 = np.zeros((K, I_pad), np.int8)
     q8 = np.zeros((K, I_pad), np.uint8)
@@ -2416,11 +2747,16 @@ def phase_giant(card: str, dev, stream_input) -> None:
     eta0 = np.zeros(I_pad)
     cons = np.zeros(I_pad, bool)
     asc = {}
-    for name, devs in meshes.items():
-        fn = M.sharded_cross_optimize(devs, with_genotype=False,
-                                      keep_conserved=True)
-        asc[name] = [t.cpu() for t in fn(p8, q8, sigma0, delta0, eta0, rb,
-                                         sm, cons)]
+    for label in states:
+        G.ENABLED = not label.endswith("_off")
+        try:
+            fn = M.sharded_cross_optimize(meshes[label.replace("_off", "")],
+                                          with_genotype=False,
+                                          keep_conserved=True)
+            asc[label] = [t.cpu() for t in fn(p8, q8, sigma0, delta0, eta0,
+                                              rb, sm, cons)]
+        finally:
+            G.ENABLED = True
     ref = asc["cpu_x2"]
     worst_prob = 0.0
     for name in ("card_x2", "card_x4"):
@@ -2428,6 +2764,10 @@ def phase_giant(card: str, dev, stream_input) -> None:
             if not torch.equal(a, b):
                 raise AssertionError(f"sharded_cross_optimize {name}: "
                                      f"decisions differ from the CPU shards")
+        for a, b in zip(asc[name], asc[f"{name}_off"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sharded_cross_optimize {name}: "
+                                     f"programs on and off differ")
         rel = abs(float(asc[name][3]) - float(ref[3])) / abs(float(ref[3]))
         worst_prob = max(worst_prob, rel)
         if not rel <= 1e-9:
@@ -2450,16 +2790,64 @@ def phase_giant(card: str, dev, stream_input) -> None:
                              f"{worst_sums} relative")
 
     # the same region on the normal path of a one-card run
+    CK.reset_launches()
     torch.cuda.synchronize()
     t0 = time.monotonic()
     O.phase_region(frags, cands, cfg, reg.start, apply_ds, device=dev)
     torch.cuda.synchronize()
+    region_wall = time.monotonic() - t0
+    stream_shapes = _launched_shapes("giant, stream region by phase_region",
+                                     check_at=dev)
+
+    # the giant locus
+    glocus = _giant_locus(tmp, dev)
+    gK0, gI0 = glocus[3].p.shape
+    gK, gI = O._bucket(gK0), O._bucket(gI0)
+    if gK * gI < giant.GIANT_CELLS:
+        raise AssertionError(f"the giant locus has {gK} x {gI} padded cells, "
+                             f"below {giant.GIANT_CELLS}")
+    exchange = _exchange_kernel(dev, gI)
+    gstates, glegs = {}, {}
+    for label, devs, programs in (("card_x2", [dev] * 2, True),
+                                  ("card_x2_off", [dev] * 2, False),
+                                  ("card_x4", [dev] * 4, True)):
+        gstates[label], glegs[label] = _sharded_leg(
+            f"giant locus {label}", glocus, devs, programs)
+    GIANT_RUNS.update(glegs)
+    _states_equal("giant locus [card] x 2, programs on against off",
+                  gstates["card_x2"], gstates["card_x2_off"])
+    x4_equal = all(np.array_equal(a, b) for a, b in
+                   zip(gstates["card_x4"], gstates["card_x2"]))
+    CK.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    O.phase_region(glocus[3], glocus[2], glocus[0], glocus[1].start,
+                   glocus[4], device=dev)
+    torch.cuda.synchronize()
+    giant_region_wall = time.monotonic() - t0
+    giant_region_peak = torch.cuda.max_memory_allocated(dev)
+    giant_shapes = _launched_shapes("giant locus by phase_region",
+                                    check_at=dev)
+    G.free_all()
     _emit("giant", card, region=str(reg), K=K, I=I_pad, reads=K0, snps=I0,
           rounds=I0 // 4 + 1, reads_devices_here=giant.reads_devices(dev),
-          states_equal=True, sharded_wall_seconds=walls,
-          phase_region_wall_seconds=time.monotonic() - t0,
+          states_equal=True, sharded_wall_seconds=walls, stream_legs=legs,
+          phase_region_wall_seconds=region_wall,
+          phase_region_launch_shapes=stream_shapes,
           ascent_prob_max_rel_diff=worst_prob,
-          snp_sums_max_rel_diff=worst_sums, hand_kernel_launches=0)
+          snp_sums_max_rel_diff=worst_sums, hand_kernel_launches=0,
+          giant_locus=dict(region=str(glocus[1]), K=gK, I=gI, reads=gK0,
+                           snps=gI0, padded_cells=gK * gI,
+                           rounds=gI0 // 4 + 1, coverage=GIANT_COVERAGE,
+                           generate_seconds=glocus[5],
+                           prepare_seconds=glocus[6], legs=glegs,
+                           states_equal_on_off=True,
+                           states_equal_x4_x2=x4_equal,
+                           phase_region_wall_seconds=giant_region_wall,
+                           phase_region_device_peak_bytes=giant_region_peak,
+                           phase_region_launch_shapes=giant_shapes),
+          exchange=exchange, bounded_wait=bound)
 
 
 def _region_schedule(dev, deep_input):
@@ -3544,7 +3932,7 @@ def main() -> int:
         phase_placement(card, dev, tmp)
         phase_analysis(card, dev, tmp)
         phase_pod_resident(card, tmp)
-        phase_giant(card, dev, stream_input)
+        phase_giant(card, dev, tmp, stream_input)
         runs["stats"] = phase_stats(card, dev, (bam, fa))
         phase_profile(card, tmp)
     draws_launched_at = _draws_at_launched_shapes(dev)
@@ -3617,6 +4005,22 @@ def main() -> int:
          "bound_by": sc["bound_by"], "library_ms": None}
     k.update({f"launches_{run}": r["condition_sets"]
               for run, r in PROGRAM_RUNS.items() if run != "deep_batched"})
+    kernels.append(k)
+    # the exchange of the reads-sharded ascent: its launches on the giant
+    # locus through [card] x 2 with programs (the barrier turns of the
+    # region's ascents), its time at a trip's widths
+    ex = EXCHANGE
+    k = {"name": "shard_exchange", "route": "cuda",
+         "source": "longcallr_tpu_torch/csrc/shard_exchange.cu",
+         "replaces": "longcallr_tpu/parallel/mesh.py:554",
+         "launches": GIANT_RUNS["card_x2"]["exchange_launches"],
+         "max_abs_err": ex["max_abs_err"], "ms": ex["ms"],
+         "ms_by": ex["ms_by"], "plain_ms": ex["plain_ms"],
+         "bound_ms": ex["bound_ms"], "bound_by": ex["bound_by"],
+         "library_ms": None, "shards_timed": ex["shards_timed"],
+         "width_timed": ex["width_timed"], "checked": ex["checked"]}
+    k.update({f"launches_{run}": r["exchange_launches"]
+              for run, r in GIANT_RUNS.items() if run != "card_x2"})
     kernels.append(k)
     print(json.dumps({"kernels": kernels}))
     print(card)

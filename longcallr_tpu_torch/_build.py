@@ -67,6 +67,11 @@ def _declare(lib: ctypes.CDLL) -> None:
                                            i, i, i, i, i, i, i, i, vp]
     lib.round_draws.restype = i
     lib.round_draws.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+    lib.sx_exchange.restype = i
+    lib.sx_exchange.argtypes = [i, i, i, i, vp, vp, vp, i, vp, i, vp, vp,
+                                ctypes.c_longlong, vp]
+    lib.sx_enable_peers.restype = i
+    lib.sx_enable_peers.argtypes = [i, i]
     lib.graph_kernel_nodes.restype = i
     lib.graph_kernel_nodes.argtypes = [vp, ctypes.POINTER(i)]
     pp, ull = ctypes.POINTER(vp), ctypes.c_ulonglong

@@ -161,6 +161,10 @@ int gp_instantiate(void* graph, int device, void** exec) {
 // Launch `exec` on `stream` of `device`; nothing waits for it.
 int gp_launch(void* exec, int device, void* stream) {
   OnDevice on(device);
+  // drop a last error that an earlier call already returned to its caller
+  // (this library's runtime keeps its own), so the check below is this
+  // launch's
+  cudaGetLastError();
   cudaError_t e = cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();

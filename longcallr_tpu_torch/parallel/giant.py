@@ -18,8 +18,14 @@ loop runs on the host with a seeded numpy stream (same schedule shape:
 ascend, keep-best}) — a stream of its own, not the per-region path's.
 
 The ascent is f64 and uses plain ``@`` products, as the JAX package's
-shard_map program does: no hand kernel lies on this path (the split-f32
-kernels' split is exact only for the tables they build themselves).
+shard_map program does: no split-matvec kernel lies on this path (the
+split-f32 kernels' split is exact only for the tables they build
+themselves). On the card each ascent is a group of device programs, one
+per shard, whose shards meet at the exchange kernel
+(``phasing/cuda_exchange.py``) and read no loop flag on the host; the
+region's shard tables stay on their devices for all its ascents, and one
+host sync an ascent serves the keep-best, as the JAX package's
+``float(prob)`` does.
 
 Routing is automatic from ``optimize.phase_region`` when a region's padded
 cell count reaches LONGCALLR_GIANT_CELLS (default 2**26) and the run's
@@ -89,7 +95,7 @@ def phase_region_sharded(frags: FragmentMatrix, cands: CandidateSet,
     from ..phasing.optimize import (PhaseState, _bucket, block_flip_pass,
                                     compute_ld_blocks, init_genotype,
                                     init_haplotypes_ld)
-    from .mesh import shard_cells, sharded_ascent
+    from .mesh import held_shards, sharded_ascent
 
     if not devices:
         raise ValueError("phase_region_sharded needs a list of devices")
@@ -121,46 +127,47 @@ def phase_region_sharded(frags: FragmentMatrix, cands: CandidateSet,
     sigma0 = np.where(read_base_np, sigma0, 0.0)
 
     # each device gets its rows in compact form (2 bytes a cell) once for
-    # the whole region and expands them there
-    shards = shard_cells(devices, p_pad, q_pad, read_base_np, site_mask_np)
-    home = shards.devices[0]
-    sm_d = torch.as_tensor(site_mask_np, device=home)
-    cons_d = torch.as_tensor(conserved_np, device=home)
+    # the whole region and expands them there; the ascents' programs read
+    # those tables where they lie, and are freed with the region
+    with held_shards(devices, p_pad, q_pad, read_base_np,
+                     site_mask_np) as shards:
 
-    def ascend(keep_conserved: bool, sigma, delta,
-               eta) -> Tuple[PhaseState, float]:
-        sg, dl, et, prob = sharded_ascent(shards, sigma, delta, eta, sm_d,
-                                          cons_d, False, keep_conserved)
-        return (PhaseState(sg.cpu().numpy(), dl.cpu().numpy(),
-                           et.cpu().numpy()), float(prob))
+        def ascend(keep_conserved: bool, sigma, delta,
+                   eta) -> Tuple[PhaseState, float]:
+            sg, dl, et, prob = sharded_ascent(shards, sigma, delta, eta,
+                                              site_mask_np, conserved_np,
+                                              False, keep_conserved)
+            return (PhaseState(sg.cpu().numpy(), dl.cpu().numpy(),
+                               et.cpu().numpy()), float(prob))
 
-    best_st, best_prob = ascend(True, sigma0, delta0, eta0)
+        best_st, best_prob = ascend(True, sigma0, delta0, eta0)
 
-    exists_pad = np.zeros((K, I_pad), dtype=bool)
-    exists_pad[:K0, :I] = frags.exists()
-    st2 = block_flip_pass(ct_np, best_st, read_base_np, site_mask_np,
-                          exists_pad, ld)
-    sg2, dl2, et2 = (np.asarray(st2.sigma), np.asarray(st2.delta),
-                     np.asarray(st2.eta))
-    prob2 = _np_matvec_objective(ct_np, sg2, dl2, et2,
-                                 read_base_np & (sg2 != 0), site_mask_np)
-    if prob2 > best_prob + TIE_TOL:
-        best_st, best_prob = st2, prob2
-
-    # perturbation schedule (phase.rs:1198-1233), host loop + sharded ascents
-    n_rounds = I // 4 + 1
-    for tidx in range(n_rounds):
-        b_sg, b_dl, b_et = best_st
-        lowv, highv = (1.0, -1.0) if tidx % 2 == 1 else (-1.0, 1.0)
-        rg = rng.random(I_pad)
-        delta = np.where(rg < 0.1, lowv, np.where(rg >= 0.9, highv, b_dl))
-        st1, prob1 = ascend(False, b_sg, delta, b_et)
-        if prob1 > best_prob + TIE_TOL:
-            best_st, best_prob = st1, prob1
-            b_sg, b_dl, b_et = best_st
-        fl = (rng.random(K) < 0.1) & read_base_np & (b_sg != 0)
-        sigma = np.where(fl, -b_sg, b_sg)
-        st2, prob2 = ascend(False, sigma, b_dl, b_et)
+        exists_pad = np.zeros((K, I_pad), dtype=bool)
+        exists_pad[:K0, :I] = frags.exists()
+        st2 = block_flip_pass(ct_np, best_st, read_base_np, site_mask_np,
+                              exists_pad, ld)
+        sg2, dl2, et2 = (np.asarray(st2.sigma), np.asarray(st2.delta),
+                         np.asarray(st2.eta))
+        prob2 = _np_matvec_objective(ct_np, sg2, dl2, et2,
+                                     read_base_np & (sg2 != 0), site_mask_np)
         if prob2 > best_prob + TIE_TOL:
             best_st, best_prob = st2, prob2
+
+        # perturbation schedule (phase.rs:1198-1233), host loop + sharded
+        # ascents
+        n_rounds = I // 4 + 1
+        for tidx in range(n_rounds):
+            b_sg, b_dl, b_et = best_st
+            lowv, highv = (1.0, -1.0) if tidx % 2 == 1 else (-1.0, 1.0)
+            rg = rng.random(I_pad)
+            delta = np.where(rg < 0.1, lowv, np.where(rg >= 0.9, highv, b_dl))
+            st1, prob1 = ascend(False, b_sg, delta, b_et)
+            if prob1 > best_prob + TIE_TOL:
+                best_st, best_prob = st1, prob1
+                b_sg, b_dl, b_et = best_st
+            fl = (rng.random(K) < 0.1) & read_base_np & (b_sg != 0)
+            sigma = np.where(fl, -b_sg, b_sg)
+            st2, prob2 = ascend(False, sigma, b_dl, b_et)
+            if prob2 > best_prob + TIE_TOL:
+                best_st, best_prob = st2, prob2
     return PhaseState(*(np.asarray(a, np.float64) for a in best_st))

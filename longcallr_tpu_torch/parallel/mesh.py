@@ -40,19 +40,22 @@ of the whole bucket.
 Along "reads" (``read_sharded_snp_sums``, ``sharded_cross_optimize``: one
 giant region) the rows of ``[K,I]`` are cut into one contiguous shard per
 device; the per-read half-step stays on its shard and the per-SNP partial
-sums are added in shard order in f64 on the first device, where the JAX
-package reduces with ``psum``: the result does not depend on timing.
+sums are added in shard order in f64, where the JAX package reduces with
+``psum``: the result does not depend on timing. The ascent is a group of
+device programs, one per shard, that meet at exchanges (``sharded_ascent``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..phasing import cuda_exchange as CX
 from ..phasing import cuda_kernels as CK
 from ..phasing import graphs
 from ..phasing import kernels_fast as KF
@@ -314,15 +317,6 @@ def _row_bounds(K: int, n: int) -> np.ndarray:
     return np.linspace(0, K, n + 1).astype(int)
 
 
-def _sum_in_order(parts, home: torch.device):
-    """Σ of per-shard partials in shard order on ``home``: the reduction
-    that stands for the JAX package's psum, the same for every run."""
-    total = parts[0].to(home)
-    for p in parts[1:]:
-        total = total + p.to(home)
-    return total
-
-
 def read_sharded_snp_sums(mesh):
     """Per-SNP masked sums for ONE giant region with its reads cut into one
     contiguous shard per device of ``mesh`` (a list of devices, or a Mesh's
@@ -350,7 +344,7 @@ def read_sharded_snp_sums(mesh):
                           torch.where(m, term(1.0), zero).sum(0),
                           torch.where(m, term(-1.0), zero).sum(0),
                           m.sum(0, dtype=torch.int64)))
-        return tuple(_sum_in_order([pt[k] for pt in parts], devs[0])
+        return tuple(CX.sum_in_order([pt[k] for pt in parts], devs[0])
                      for k in range(5))
 
     return fn
@@ -358,11 +352,13 @@ def read_sharded_snp_sums(mesh):
 
 class ReadShards(NamedTuple):
     """One region's σ-independent tables, cut into contiguous row shards,
-    each on its device (built once per region, ``shard_cells``)."""
+    each on its device (built once per region, ``shard_cells``). ``key``
+    tells the region's shards apart in the program cache: the ascent's
+    programs read these tables where they lie (``sharded_ascent``)."""
 
     devices: List[torch.device]
     bounds: np.ndarray          # row offsets of the shards, [n + 1]
-    lerr: List[torch.Tensor]    # [K_s,I] f64 log10(err), 0 where no cell
+    lerr_m: List[torch.Tensor]  # [K_s,I] f64 log10(err) on phase-site cells
     diff: List[torch.Tensor]    # [K_s,I] f64 l1m - lerr on phase-site cells
     dp: List[torch.Tensor]      # [K_s,I] f64 diff * p
     m: List[torch.Tensor]       # [K_s,I] bool phase-site cells
@@ -370,6 +366,12 @@ class ReadShards(NamedTuple):
     row_dif: List[torch.Tensor]  # [K_s] Σ diff
     row_cells: List[torch.Tensor]  # [K_s] phase-site cells of the read
     read_base: List[torch.Tensor]  # [K_s] bool
+    key: int = 0
+
+
+_SHARD_KEYS = itertools.count(1)
+# rows of a shard whose coverage the ascent's prologue counts at a time
+COVER_ROWS = 8192
 
 
 def shard_cells(devices, p8, q8, read_base, site_mask) -> ReadShards:
@@ -377,92 +379,174 @@ def shard_cells(devices, p8, q8, read_base, site_mask) -> ReadShards:
     cell travel) into one row shard per device and expand each shard's rows
     on its own device (kernels.expand_cells)."""
     devs = _devices(devices)
+    if len({d.type for d in devs}) != 1:
+        raise ValueError(f"the reads axis mixes device kinds: {devs}")
     t = lambda a: torch.as_tensor(a)
     p8, q8, read_base, site_mask = map(t, (p8, q8, read_base, site_mask))
     bounds = _row_bounds(p8.shape[0], len(devs))
-    cols = {k: [] for k in ReadShards._fields[2:]}
+    cols = {k: [] for k in ReadShards._fields[2:-1]}
     for d, r0, r1 in zip(devs, bounds[:-1], bounds[1:]):
         ct = expand_cells(CompactCells(p8[r0:r1].to(d), q8[r0:r1].to(d)))
         zero = torch.zeros((), dtype=f64, device=d)
         m = site_mask.to(d)[None, :] & ct.exists
         diff = torch.where(m, ct.l1m - ct.lerr, zero)
         lerr_m = torch.where(m, ct.lerr, zero)
-        for k, v in (("lerr", ct.lerr), ("diff", diff), ("dp", diff * ct.p),
-                     ("m", m), ("row_b", lerr_m.sum(1)),
+        for k, v in (("lerr_m", lerr_m), ("diff", diff),
+                     ("dp", diff * ct.p), ("m", m), ("row_b", lerr_m.sum(1)),
                      ("row_dif", diff.sum(1)), ("row_cells", m.sum(1)),
                      ("read_base", read_base[r0:r1].to(d))):
             cols[k].append(v)
-    return ReadShards(devs, bounds, **cols)
+    return ReadShards(devs, bounds, **cols, key=next(_SHARD_KEYS))
+
+
+@contextlib.contextmanager
+def held_shards(devices, p8, q8, read_base, site_mask):
+    """``shard_cells`` for the length of a ``with`` block: the ascent
+    programs cached for these shards (they read the shards' tables where
+    they lie) are freed at its end."""
+    sh = shard_cells(devices, p8, q8, read_base, site_mask)
+    try:
+        yield sh
+    finally:
+        graphs.free_where(lambda k: k[0] == "sharded" and k[3] == sh.key)
+
+
+def _coverage(m, rm0, out) -> None:
+    """``out`` = Σ over the rows of ``m & rm0[:, None]``, COVER_ROWS rows
+    at a time: a bool sum widens its operand to int64, 8 bytes a cell,
+    which a captured piece's pool would keep."""
+    out.zero_()
+    for r in range(0, m.shape[0], COVER_ROWS):
+        out.add_((m[r:r + COVER_ROWS] & rm0[r:r + COVER_ROWS, None]).sum(0))
+
+
+def _shard_program(sh: ReadShards, s: int, box, values: dict,
+                   with_genotype: bool, keep_conserved: bool):
+    """Shard ``s``'s part of the ascent group: (inputs, nodes, outputs).
+    The prologue sets up the active reads and the column partials (as
+    products with the active-read vector, and the coverage in blocks of
+    COVER_ROWS rows: no [K_s, I] temporary), a trip is the σ half-step on
+    the shard's rows, the exchange of the flip count and dpᵀσ, and the
+    (δ, η) half-step on the exchanged sums, replicated on every shard; the
+    objective's partial is exchanged last."""
+    d = sh.devices[s]
+    I = sh.dp[s].shape[1]
+    z, inputs = O._input_buffers(values, d)
+    K_s = z.sigma.shape[0]
+    zeros = lambda *shape, dtype=f64: torch.zeros(shape, dtype=dtype,
+                                                  device=d)
+    z.rm0, z.upd = zeros(K_s, dtype=torch.bool), zeros(K_s, dtype=torch.bool)
+    z.rm0f, z.sg = zeros(K_s), zeros(K_s)
+    z.dl, z.et, z.dts, z.trip_f = zeros(I), zeros(I), zeros(I), zeros(I)
+    z.cols_f, z.col_f = zeros(3 * I), zeros(3 * I)
+    z.cols_i, z.cov = zeros(I, dtype=torch.int64), zeros(I, dtype=torch.int64)
+    z.trip_i, z.nflips = (zeros(1, dtype=torch.int64),
+                          zeros(1, dtype=torch.int64))
+    z.obj_f, z.prob = zeros(1), zeros(1)
+    z.count = zeros(dtype=torch.int64)
+    z.more = zeros(dtype=torch.bool)
+    dp = sh.dp[s]
+
+    def prologue():
+        rm0 = sh.read_base[s] & (z.sigma != 0)
+        z.rm0.copy_(rm0)
+        z.rm0f.copy_(rm0.to(f64))
+        z.upd.copy_(rm0 & (sh.row_cells[s] > 0))
+        for k, tab in enumerate((sh.lerr_m[s], sh.diff[s], dp)):
+            z.cols_f[k * I:(k + 1) * I].copy_(tab.T @ z.rm0f)
+        _coverage(sh.m[s], rm0, z.cols_i)
+        z.sg.copy_(z.sigma)
+        z.dl.copy_(z.delta)
+        z.et.copy_(z.eta)
+        z.count.zero_()
+
+    def uv():
+        return (torch.where(z.et == 0, z.dl, 0.0),
+                torch.where(z.et == 0, 0.0, z.et))
+
+    def sigma_step():
+        u, v = uv()
+        du = dp @ u
+        dv = dp @ v
+        base = sh.row_b[s] + 0.5 * sh.row_dif[s] + 0.5 * dv
+        q, qn = sigma_q(base + 0.5 * du, base - 0.5 * du, z.sg)
+        flip = z.upd & (qn > q + TIE_TOL)
+        z.sg.copy_(torch.where(flip, -z.sg, z.sg))
+        z.trip_i.copy_(flip.sum().reshape(1))
+        z.trip_f.copy_(dp.T @ torch.where(z.rm0, z.sg, 0.0))
+
+    def snp_step():
+        col_b, col_dif, col_dp = z.col_f[:I], z.col_f[I:2 * I], z.col_f[2 * I:]
+        base = col_b + 0.5 * col_dif
+        half = 0.5 * z.dl * z.dts
+        sums = (base + half, base - half, base + 0.5 * col_dp,
+                base - 0.5 * col_dp, z.cov)
+        new_delta, new_eta, d_inc = O._snp_decision(
+            *snp_qs(*sums), z.cov, PhaseState(z.sg, z.dl, z.et), z.site_mask,
+            z.conserved, with_genotype, keep_conserved)
+        z.dl.copy_(new_delta)
+        z.et.copy_(new_eta)
+        z.count.add_(1)
+        z.more.copy_(((z.nflips[0] > 0) | d_inc) & (z.count < O.MAX_TRIPS))
+
+    def objective():
+        # the objective in matvec form, this shard's reads
+        u, v = uv()
+        per = torch.where(z.rm0, sh.row_b[s] + 0.5 * sh.row_dif[s]
+                          + 0.5 * (z.sg * (dp @ u) + dp @ v), 0.0).sum()
+        z.obj_f.copy_(per.reshape(1))
+
+    X = lambda name, parts, totals: graphs.Exchange(name, box, s, parts,
+                                                    totals)
+    sigma = graphs.Piece("sigma", sigma_step)
+    trip = X("trip", (z.trip_f, z.trip_i), (z.dts, z.nflips))
+    snp = graphs.Piece("snp", snp_step)
+    nodes = (graphs.Piece("prologue", prologue),
+             X("columns", (z.cols_f, z.cols_i), (z.col_f, z.cov)),
+             sigma, trip, snp,
+             graphs.While(z.more, (sigma, trip, snp)),
+             graphs.Piece("objective", objective),
+             X("objective", (z.obj_f, None), (z.prob, None)))
+    return inputs, nodes, (z.sg, z.dl, z.et, z.prob)
 
 
 def sharded_ascent(sh: ReadShards, sigma0, delta0, eta0, site_mask,
                    conserved, with_genotype: bool, keep_conserved: bool):
-    """Full ≤21-trip coordinate ascent of one region over its row shards.
-    The σ half-step stays on each shard (``dp @ u``, ``dp @ v``, the
-    ``sigma_q`` flip under TIE_TOL); the flip count, the column sums and
-    ``dpᵀσ`` are added in shard order on the first device, where the (δ, η)
-    half-step runs once. Returns (sigma [K], delta, eta, prob) on the first
-    device."""
-    home = sh.devices[0]
-    on = lambda a, d: torch.as_tensor(a).to(d)
-    site_mask = on(site_mask, home)
-    conserved = on(conserved, home)
-    sigma0 = on(sigma0, home).to(f64)
-    sigs = [sigma0[r0:r1].to(d) for d, r0, r1 in
-            zip(sh.devices, sh.bounds[:-1], sh.bounds[1:])]
-    n = len(sh.devices)
-    rm0 = [sh.read_base[s] & (sigs[s] != 0) for s in range(n)]
-    ms = [sh.m[s] & rm0[s][:, None] for s in range(n)]
-    zero = lambda s: torch.zeros((), dtype=f64, device=sh.devices[s])
-    col = lambda v: _sum_in_order(
-        [torch.where(ms[s], v[s], zero(s)).sum(0) for s in range(n)], home)
-    col_b, col_dif, col_dp = col(sh.lerr), col(sh.diff), col(sh.dp)
-    cov = _sum_in_order([ms[s].sum(0) for s in range(n)], home)
-    upd_rows = [rm0[s] & (sh.row_cells[s] > 0) for s in range(n)]
+    """Full ≤21-trip coordinate ascent of one region over its row shards,
+    the counterpart of the JAX package's shard_map program: a
+    ``graphs.Group`` of one program per shard (``_shard_program``), whose
+    shards meet at exchanges (the psums: the column sums, the flip count
+    with dpᵀσ each trip, the objective) that sum the partials in shard
+    order on every shard (``cuda_exchange``), so every shard makes the same
+    (δ, η) decisions and its loop turns as often. On the card each shard's
+    trips run in a WHILE node of its program and no loop flag is read on
+    the host; the shards' tables are read where they lie (the program is
+    kept per region and (with_genotype, keep_conserved) until the
+    ``held_shards`` block ends). Returns (sigma [K], delta, eta, prob) on
+    the first device."""
+    devs = sh.devices
+    home = devs[0]
+    I = sh.dp[0].shape[1]
+    t = lambda a, dt: torch.as_tensor(a).to(dtype=dt)
+    values = dict(sigma=t(sigma0, f64), delta=t(delta0, f64),
+                  eta=t(eta0, f64), site_mask=t(site_mask, torch.bool),
+                  conserved=t(conserved, torch.bool))
 
-    def uv(delta, eta):
-        u = torch.where(eta == 0, delta, 0.0)
-        v = torch.where(eta == 0, 0.0, eta)
-        return ([u.to(d) for d in sh.devices], [v.to(d) for d in sh.devices])
+    def make():
+        box = CX.ShardExchange(devs, 4 * I)
+        shards = []
+        for s, (r0, r1) in enumerate(zip(sh.bounds[:-1], sh.bounds[1:])):
+            mine = {k: (v[r0:r1] if k == "sigma" else v)
+                    for k, v in values.items()}
+            shards.append(_shard_program(sh, s, box, mine, with_genotype,
+                                         keep_conserved))
+        return graphs.Group(box, shards, rows=("sigma",), bounds=sh.bounds)
 
-    st = PhaseState(sigma0, on(delta0, home).to(f64), on(eta0, home).to(f64))
-    for _ in range(21):
-        us, vs = uv(st.delta, st.eta)
-        flips = []
-        for s in range(n):
-            du = sh.dp[s] @ us[s]
-            dv = sh.dp[s] @ vs[s]
-            base = sh.row_b[s] + 0.5 * sh.row_dif[s] + 0.5 * dv
-            q, qn = sigma_q(base + 0.5 * du, base - 0.5 * du, sigs[s])
-            flip = upd_rows[s] & (qn > q + TIE_TOL)
-            sigs[s] = torch.where(flip, -sigs[s], sigs[s])
-            flips.append(flip.sum())
-        s_inc = _sum_in_order(flips, home) > 0
-        dts = _sum_in_order(
-            [sh.dp[s].T @ torch.where(rm0[s], sigs[s], 0.0)
-             for s in range(n)], home)
-        base = col_b + 0.5 * col_dif
-        half = 0.5 * st.delta * dts
-        sums = (base + half, base - half, base + 0.5 * col_dp,
-                base - 0.5 * col_dp, cov)
-        new_delta, new_eta, d_inc = O._snp_decision(
-            *snp_qs(*sums), cov, st, site_mask, conserved, with_genotype,
-            keep_conserved)
-        st = PhaseState(st.sigma, new_delta, new_eta)
-        # a host read of the continue flag, counted with the plain
-        # executor's (this ascent is not a device program)
-        CK.count_graphs(flag_reads=1)
-        if not bool(s_inc | d_inc):
-            break
-    # objective (matvec form), per-shard partials added in shard order
-    us, vs = uv(st.delta, st.eta)
-    per = [torch.where(rm0[s], sh.row_b[s] + 0.5 * sh.row_dif[s]
-                       + 0.5 * (sigs[s] * (sh.dp[s] @ us[s])
-                                + sh.dp[s] @ vs[s]), 0.0).sum()
-           for s in range(n)]
-    prob = _sum_in_order(per, home)
-    sigma = torch.cat([sg.to(home) for sg in sigs])
-    return sigma, st.delta, st.eta, prob
+    kind = ("sharded", with_genotype, keep_conserved, sh.key)
+    outs = graphs.run(kind, list(devs), make, values)
+    sigma = torch.cat([o[0].to(home) for o in outs])
+    delta, eta, prob = outs[0][1:]
+    return sigma, delta, eta, prob.reshape(())
 
 
 def sharded_cross_optimize(mesh, with_genotype: bool = False,
@@ -479,9 +563,9 @@ def sharded_cross_optimize(mesh, with_genotype: bool = False,
     devs = _devices(mesh)
 
     def fn(p8, q8, sigma0, delta0, eta0, read_base, site_mask, conserved):
-        sh = shard_cells(devs, p8, q8, read_base, site_mask)
-        return sharded_ascent(sh, sigma0, delta0, eta0, site_mask, conserved,
-                              with_genotype, keep_conserved)
+        with held_shards(devs, p8, q8, read_base, site_mask) as sh:
+            return sharded_ascent(sh, sigma0, delta0, eta0, site_mask,
+                                  conserved, with_genotype, keep_conserved)
 
     return fn
 

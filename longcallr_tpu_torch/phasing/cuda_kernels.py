@@ -87,8 +87,11 @@ programs freed beyond the budget, the body runs of their loops, the
 launches of the set-condition kernel (the device's own count) and the host
 reads of a loop flag (the plain executor's; a program makes none),
 ``GRAPH_LAUNCHES`` the launches that
-program runs added. A capture's cols workspace (it runs on a stream of its
-own) is taken out of ``_WORKSPACES`` afterwards and kept by its program
+program runs added, ``GROUPS`` the launches of groups of programs (one
+program per shard of the reads-sharded ascent) and the barrier turns their
+exchanges counted on the device. A capture's cols workspace (it runs on a
+stream of its own) is taken out of ``_WORKSPACES`` afterwards and kept by
+its program
 (``take_workspaces``): a later call that grows the workspace of that stream
 would otherwise free memory that the program writes at every run.
 """
@@ -118,6 +121,11 @@ _GRAPHS_ZERO = {"launches": 0, "builds": 0, "captures": 0,
                 "bytes_held": 0, "evicted": 0, "body_runs": 0,
                 "condition_sets": 0, "flag_reads": 0}
 GRAPHS = dict(_GRAPHS_ZERO)
+# groups of device programs, one per shard (phasing/graphs.py, Group: the
+# reads-sharded ascent): group launches, and the shards' barrier turns at
+# their exchanges, counted on the device (each shard's own count, summed)
+_GROUPS_ZERO = {"launches": 0, "barrier_turns": 0}
+GROUPS = dict(_GROUPS_ZERO)
 GRAPH_LAUNCHES = {"dual_matvec_rows": 0, "matvec_cols": 0}
 _count_lock = threading.Lock()
 # the mesh row on whose behalf a thread launches (None: no row), and the
@@ -206,6 +214,7 @@ COLS_WALK_DIRECT_STATIC = 8 * (2 * COLS_WALK_THREADS
 
 def reset_launches() -> None:
     from .cuda_draws import reset_draw_launches
+    from .cuda_exchange import reset_exchange_launches
 
     with _count_lock:
         for k in LAUNCHES:
@@ -215,9 +224,11 @@ def reset_launches() -> None:
         LAUNCHES_BY_DEVICE.clear()
         LAUNCHES_BY_ROW.clear()
         GRAPHS.update(_GRAPHS_ZERO)
+        GROUPS.update(_GROUPS_ZERO)
         for k in GRAPH_LAUNCHES:
             GRAPH_LAUNCHES[k] = 0
     reset_draw_launches()
+    reset_exchange_launches()
 
 
 def set_launch_row(row: Optional[int]) -> None:
@@ -240,12 +251,17 @@ def _count(name: str, hi: torch.Tensor, g: int, device_index: int) -> None:
 
 def _add(launches, n: int = 1) -> None:
     """Count ``launches`` ((name, shape, device index) each; the round
-    draws' go to ``cuda_draws``) ``n`` times for this thread's row."""
+    draws' go to ``cuda_draws``, the shard exchange's to ``cuda_exchange``)
+    ``n`` times for this thread's row."""
     from .cuda_draws import add_draw_launches
+    from .cuda_exchange import add_exchange_launches
 
     row = getattr(_launch_row, "index", None)
     with _count_lock:
         for name, shape, device_index in launches:
+            if name == "shard_exchange":
+                add_exchange_launches(n)
+                continue
             if name not in LAUNCHES:
                 add_draw_launches(shape, n)
                 continue
@@ -288,6 +304,13 @@ def count_graphs(**amounts) -> None:
     with _count_lock:
         for k, v in amounts.items():
             GRAPHS[k] += v
+
+
+def count_groups(**amounts) -> None:
+    """Add ``amounts`` to the ``GROUPS`` counters of the same names."""
+    with _count_lock:
+        for k, v in amounts.items():
+            GROUPS[k] += v
 
 
 def _widen(hi, lo, lead: int) -> torch.Tensor:

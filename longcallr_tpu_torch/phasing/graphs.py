@@ -44,6 +44,16 @@ lives. The programs held count against the bucket budget
 recently are freed (not the one just used, nor one in use), so a run of
 many shapes holds about that much at most besides the bucket in flight.
 
+A ``Group`` is one description over the shards of the reads-sharded ascent
+(``parallel/mesh.sharded_ascent``), the counterpart of the JAX package's
+``shard_map`` program: one ``Program`` per shard, each on its shard's
+device (CUDA wants a conditional node's body on one device), the shards
+meeting at ``Exchange`` nodes, where each launches the exchange kernel of
+``cuda_exchange`` (the psum) inside a piece. A group's launch starts every
+shard's program on a stream of its own, under the locks of its cards taken
+in device order, and syncs once. Its key in the cache holds every shard's
+device.
+
 There is no quiet fallback: on a CUDA device a capture, a composition, an
 instantiation or a launch that fails raises. ``ENABLED`` is the one switch,
 for an A/B of the programs against the plain executor on the card.
@@ -51,7 +61,9 @@ for an A/B of the programs against the plain executor on the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import itertools
 import sys
 import threading
@@ -232,13 +244,18 @@ class Program:
 
     def build(self) -> dict:
         """Warm up, capture every piece, compose and instantiate (CUDA)."""
-        from .._build import load
-
-        dev = self.device
         t0 = time.perf_counter()
         with CK.recording():            # the warm-up's launches: not counted
             for p in self.pieces:
                 p.fn()
+        return self.compile(t0)
+
+    def compile(self, t0: float) -> dict:
+        """Capture every piece (warmed up since ``t0``), compose and
+        instantiate."""
+        from .._build import load
+
+        dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         pool = torch.cuda.graph_pool_handle()
@@ -311,6 +328,12 @@ class Program:
         the set-condition launches are the device's own count, which must
         agree with the body runs."""
         outs, runs, sets = self._execute()
+        self._account(runs, sets)
+        return outs, runs
+
+    def _account(self, runs: List[int], sets: int) -> None:
+        """Check a run's set-condition launches against its body runs and
+        count the launches its pieces made."""
         if sets != self.condition_sets(runs):
             raise RuntimeError(f"device program: {sets} set-condition "
                                f"launches for body runs {runs}")
@@ -319,7 +342,6 @@ class Program:
             CK.count_runs(self._captured[id(p)][1], each.get(id(p), 0))
         CK.count_graphs(launches=1, body_runs=sum(runs),
                         condition_sets=sets)
-        return outs, runs
 
     def _execute(self) -> Tuple[tuple, List[int], int]:
         """One launch on the current stream and one host sync: (copies of
@@ -376,6 +398,240 @@ def _read_flag(t: torch.Tensor) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# groups: one program per shard, meeting at exchanges
+# ---------------------------------------------------------------------------
+
+class Exchange(NamedTuple):
+    """A point where the shards of a group meet (the JAX package's psum
+    over the "reads" axis): shard ``shard``'s partials ``parts`` (an f64
+    and an int64 1-D tensor on its device, either None) are summed over
+    the shards in shard order into its ``totals`` (``cuda_exchange``)."""
+
+    name: str
+    box: object                 # cuda_exchange.ShardExchange
+    shard: int
+    parts: tuple
+    totals: tuple
+
+
+def _launch_exchange(x: Exchange) -> None:
+    """The shard's side of an exchange: one kernel launch."""
+    from .cuda_exchange import exchange
+
+    exchange(x.box, x.shard, *x.parts, *x.totals)
+
+
+def _as_pieces(nodes, made: Dict[int, Piece]) -> tuple:
+    """``nodes`` with each Exchange replaced by its piece (one piece for an
+    Exchange that stands in several places; ``made`` keeps them by the
+    Exchange's id)."""
+    out = []
+    for n in nodes:
+        if isinstance(n, Exchange):
+            n = made.setdefault(id(n), Piece(n.name, functools.partial(
+                _launch_exchange, n)))
+        elif isinstance(n, While):
+            n = While(n.flag, _as_pieces(n.body, made))
+        out.append(n)
+    return tuple(out)
+
+
+class Group:
+    """One description over the shards of ``box`` (a
+    ``cuda_exchange.ShardExchange``): ``shards[s]`` = (inputs, nodes,
+    outputs) of shard s, the same structure on every shard, each piece
+    touching only its shard's device, Exchange nodes where they meet.
+    Inputs named in ``rows`` are cut by rows (``bounds``), the others go to
+    every shard whole.
+
+    On CUDA it is one ``Program`` per shard, each on its shard's device
+    (CUDA wants a conditional node's body on one device), the exchanges
+    kernel launches inside their pieces; a launch starts every shard's
+    program, each on a stream of its own, before any host sync, under the
+    lock of each card taken in device order, and syncs once. Every shard
+    holds bit-identical exchanged sums, so every shard's loops turn as
+    often; the shards' body runs, set-condition launches and barrier turns
+    (counted on the device) are checked against each other. The plain
+    executor walks the description stage by stage: a piece for shard 0 ...
+    n-1, an exchange once every shard has reached it (on the CPU the plain
+    sum, ``sum_in_order``; on a card the kernel, each shard on its stream),
+    a loop's flag (shard 0's) read on the host once a turn."""
+
+    def __init__(self, box, shards, rows=(), bounds=None):
+        self.box = box
+        self.devices = list(box.devices)
+        self.nodes = [tuple(nodes) for _, nodes, _ in shards]
+        self.rows = tuple(rows)
+        self.bounds = bounds
+        self.progs, self._exchanges = [], []
+        for dev, (inputs, nodes, outputs) in zip(self.devices, shards):
+            made: Dict[int, Piece] = {}
+            self.progs.append(Program(dev, inputs, _as_pieces(nodes, made),
+                                      outputs))
+            self._exchanges.append({id(p) for p in made.values()})
+        self.flag_reads = 0
+        self.streams = ([torch.cuda.Stream(d) for d in self.devices]
+                        if box.cuda else None)
+
+    @property
+    def outputs(self) -> list:
+        return [p.outputs for p in self.progs]
+
+    def load(self, values: Dict[str, object]) -> None:
+        for s, prog in enumerate(self.progs):
+            r0, r1 = (self.bounds[s], self.bounds[s + 1]) \
+                if self.bounds is not None else (None, None)
+            prog.load({k: (v[r0:r1] if k in self.rows else v)
+                       for k, v in values.items()})
+
+    def _on(self, s: int):
+        if self.streams is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.streams[s])
+
+    def _stage(self, col) -> None:
+        """One node of every shard: a piece each, or an exchange."""
+        if isinstance(col[0], Piece):
+            for s, node in enumerate(col):
+                with self._on(s):
+                    node.fn()
+        elif self.box.cuda:
+            for s, node in enumerate(col):
+                with self._on(s):
+                    _launch_exchange(node)
+        else:
+            from .cuda_exchange import sum_in_order
+
+            for k in range(2):
+                if col[0].parts[k] is None:
+                    continue
+                parts = [node.parts[k] for node in col]
+                for node in col:
+                    node.totals[k].copy_(sum_in_order(parts,
+                                                      node.totals[k].device))
+
+    def _fork(self) -> None:
+        """Each shard's stream waits for what its device's current stream
+        has queued (the inputs)."""
+        if self.streams is not None:
+            for st, dev in zip(self.streams, self.devices):
+                st.wait_stream(torch.cuda.current_stream(dev))
+
+    def _join(self) -> None:
+        if self.streams is not None:
+            for st, dev in zip(self.streams, self.devices):
+                torch.cuda.current_stream(dev).wait_stream(st)
+
+    def run_plain(self) -> List[int]:
+        runs = [0] * len(self.progs[0].loops)
+        self.flag_reads = 0
+        self._fork()
+        self._walk(self.nodes, runs)
+        self._join()
+        return runs
+
+    def _walk(self, cols, runs) -> None:
+        for col in zip(*cols):
+            if not isinstance(col[0], While):
+                self._stage(col)
+                continue
+            i = self._index(col[0])
+            while self._read(col[0].flag):
+                self._walk([n.body for n in col], runs)
+                runs[i] += 1
+
+    def _index(self, loop: While) -> int:
+        return next(k for k, lp in enumerate(_loops(self.nodes[0]))
+                    if lp is loop)
+
+    def _read(self, flag: torch.Tensor) -> bool:
+        self.flag_reads += 1
+        with self._on(0):
+            return _read_flag(flag)
+
+    def _warm(self, cols) -> None:
+        """Every piece and exchange once, stage by stage (a loop's body
+        once, whatever its flag)."""
+        for col in zip(*cols):
+            if isinstance(col[0], While):
+                self._warm([n.body for n in col])
+            else:
+                self._stage(col)
+
+    def build(self) -> dict:
+        t0 = time.perf_counter()
+        self._fork()
+        with CK.recording():            # the warm-up's launches: not counted
+            self._warm(self.nodes)
+        for st in self.streams:
+            st.synchronize()
+        took = [p.compile(t0 if s == 0 else time.perf_counter())
+                for s, p in enumerate(self.progs)]
+        return {k: sum(t[k] for t in took) for k in took[0]}
+
+    def turns(self, s: int, runs: List[int]) -> int:
+        """Exchanges shard ``s``'s program makes in a run with these body
+        runs."""
+        each = self.progs[s].piece_runs(runs)
+        return sum(each.get(x, 0) for x in self._exchanges[s])
+
+    def launch(self) -> Tuple[list, List[int]]:
+        """Run every shard's program: (each shard's copies of its outputs,
+        the body runs of each loop)."""
+        outs, counts = self._execute()
+        runs = [c[:-2] for c in counts]
+        if any(r != runs[0] for r in runs):
+            raise RuntimeError(f"device programs of a group: the shards' "
+                               f"loops turned differently: {runs}")
+        turns = 0
+        for s, (prog, c, r) in enumerate(zip(self.progs, counts, runs)):
+            if c[-1] != self.turns(s, r):
+                raise RuntimeError(f"device programs of a group: {c[-1]} "
+                                   f"barrier turns for body runs {r}")
+            prog._account(r, c[-2])
+            turns += c[-1]
+        CK.count_groups(launches=1, barrier_turns=turns)
+        return outs, runs[0]
+
+    def _execute(self):
+        """Every shard's program launched on its stream, then one host
+        sync: (each shard's output copies, each shard's counters: body runs
+        of each loop, set-condition launches, barrier turns)."""
+        from .._build import load
+
+        lib = load()
+        with contextlib.ExitStack() as locks:
+            for index in sorted({d.index for d in self.devices}):
+                locks.enter_context(_card_lock(torch.device("cuda", index)))
+            self._fork()
+            for s, prog in enumerate(self.progs):
+                with self._on(s):
+                    prog.counters.zero_()
+                    self.box.state[s][1].zero_()
+                    _raise("launch", lib.gp_launch(
+                        prog._exec, prog.device.index,
+                        self.streams[s].cuda_stream))
+            outs, counts, done = [], [], []
+            for s, prog in enumerate(self.progs):
+                with self._on(s):
+                    outs.append(tuple(o.clone() for o in prog.outputs))
+                    counts.append(torch.cat([
+                        prog.counters, self.box.state[s][1:]]).to(
+                            "cpu", non_blocking=True))
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    done.append(ev)
+            for ev in done:
+                ev.synchronize()
+        self._join()
+        return outs, [c.tolist() for c in counts]
+
+    def free(self) -> None:
+        for prog in self.progs:
+            prog.free()
+
+
+# ---------------------------------------------------------------------------
 # the cache of built programs
 # ---------------------------------------------------------------------------
 
@@ -406,11 +662,11 @@ _cache_lock = threading.Lock()
 _clock = itertools.count(1)
 
 
-def _key_of(kind: tuple, device: torch.device, values: dict) -> tuple:
+def _key_of(kind: tuple, devices: List[torch.device], values: dict) -> tuple:
     shapes = tuple((k, tuple(v.shape), str(v.dtype)) if hasattr(v, "shape")
                    else (k, type(v).__name__) for k, v in
                    sorted(values.items()))
-    return kind + (device.type, device.index) + shapes
+    return kind + tuple((d.type, d.index) for d in devices) + shapes
 
 
 def _device_program(device: torch.device, capture: bool) -> bool:
@@ -418,12 +674,12 @@ def _device_program(device: torch.device, capture: bool) -> bool:
     return device.type == "cuda" and ENABLED and capture
 
 
-def _allocated(device: torch.device) -> int:
-    """Device bytes the caching allocator has handed out (0 on the CPU).
-    No device sync: another thread may be capturing."""
-    if device.type != "cuda":
-        return 0
-    return torch.cuda.memory_allocated(device)
+def _allocated(devices: List[torch.device]) -> int:
+    """Device bytes the caching allocator has handed out on ``devices``'
+    cards (0 on the CPU). No device sync: another thread may be
+    capturing."""
+    return sum(torch.cuda.memory_allocated(index) for index in
+               {d.index for d in devices if d.type == "cuda"})
 
 
 def _budget() -> int:
@@ -433,23 +689,34 @@ def _budget() -> int:
     return BUCKET_MAX_BYTES
 
 
-def run(kind: tuple, device: torch.device, make: Callable[[], Program],
-        values: Dict[str, object], capture: bool = True) -> tuple:
+def _device_of(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def run(kind: tuple, device, make: Callable[[], object],
+        values: Dict[str, object], capture: bool = True):
     """Run the program that ``make`` describes on ``values``: on a CUDA
     device (with ``ENABLED`` and ``capture``) the cached device program of
     this shape (built at its first call), else the plain executor on a
     program made for this call. ``kind`` names the program and what else
-    its description depends on; the shapes and types of ``values`` complete
-    the key. Returns the outputs (copies of the program's buffers)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+    its description depends on; the device and the shapes and types of
+    ``values`` complete the key. Returns the outputs (copies of the
+    program's buffers). ``device`` may be a list, the shards of a
+    ``Group`` that ``make`` returns: the key holds them all, the group
+    counts against the budget of its first device's card, and the outputs
+    are a list, each shard's."""
+    group = isinstance(device, (list, tuple))
+    devices = [_device_of(d) for d in (device if group else [device])]
+    device = devices[0]
     if not _device_program(device, capture):
         prog = make()
         prog.load(values)
         prog.run_plain()
         return prog.outputs
-    key = _key_of(kind, device, values)
+    key = _key_of(kind, devices, values)
     while True:
         with _cache_lock:
             slot = _CACHE.setdefault(key, _Slot(device))
@@ -458,12 +725,12 @@ def run(kind: tuple, device: torch.device, make: Callable[[], Program],
                 if _CACHE.get(key) is not slot:
                     continue        # freed while this call waited
             if slot.prog is None:
-                before = _allocated(device)
+                before = _allocated(devices)
                 prog = make()
                 prog.load(values)
                 took = prog.build()
                 slot.prog = prog
-                slot.held = max(0, _allocated(device) - before)
+                slot.held = max(0, _allocated(devices) - before)
                 CK.count_graphs(builds=1, bytes_held=slot.held, **took)
                 with _cache_lock:
                     BUILDS.append({"key": repr(key), "bytes_held": slot.held,
@@ -507,6 +774,18 @@ def free_all() -> int:
     with _cache_lock:
         slots = list(_CACHE.values())
         _CACHE.clear()
+    n = 0
+    for slot in slots:
+        with slot.lock:
+            n += slot.free()
+    return n
+
+
+def free_where(pred: Callable[[tuple], bool]) -> int:
+    """Free the cached programs whose key satisfies ``pred``, each once its
+    call in flight has ended; returns how many."""
+    with _cache_lock:
+        slots = [_CACHE.pop(k) for k in list(_CACHE) if pred(k)]
     n = 0
     for slot in slots:
         with slot.lock:
