@@ -143,8 +143,10 @@ package) and fails on the first check that does not hold:
                card by size: the crossing points beside the defaults of
                utils/device.py); then the enumeration workload (g) and the
                preset goldens with the router at its default, off
-               (threshold 0) and all-host (2^62): bytes equal, the counts
-               of problems placed on the host and on the card printed;
+               (threshold 0) and all-host (2^62: iterative problems on the
+               host, enumeration ones in float64 on the card): bytes equal,
+               the counts of problems placed on the host, on the card and
+               in float64 on the card printed;
  11. analysis — ASE and ASJ on a simulated phased BAM in this process,
                where CUDA is initialised: the fork gate is closed, the
                tables are written with threads=4 and equal threads=1's;
@@ -1510,8 +1512,9 @@ ALL_HOST = 1 << 62
 @contextlib.contextmanager
 def _router(threshold):
     """The placement thresholds of utils/device.py set for the runs inside:
-    0 places everything on the run's device, ALL_HOST everything on the
-    host, None leaves the defaults."""
+    0 places everything on the run's device, ALL_HOST every candidate call
+    and iterative phase problem on the host and every enumeration phase
+    problem in float64 on the card, None leaves the defaults."""
     from longcallr_tpu_torch.utils import device as D
 
     saved = D.MIN_ACCEL_PHASE_WORK, D.MIN_ACCEL_CELLS
@@ -1527,6 +1530,7 @@ def _placed(out) -> dict:
     """Phase problems of one run by where the router placed them."""
     return {"host": int(out.stage_seconds.get("phase_host_placed", 0)),
             "card": int(out.stage_seconds.get("phase_card_placed", 0)),
+            "card_f64": int(out.stage_seconds.get("phase_card_f64_placed", 0)),
             "degraded": out.n_degraded_placements}
 
 
@@ -2045,7 +2049,7 @@ def phase_resume(card: str, tmp: str) -> None:
                                                    extra=flags)
             _must_equal(f"--resume {mode}, {step}", _payloads(prefix), want)
             placed = _placed(out)
-            n_placed = placed["host"] + placed["card"]
+            n_placed = placed["host"] + placed["card"] + placed["card_f64"]
             if step == "rerun" and (any(launches.values()) or n_placed):
                 raise AssertionError(f"--resume {mode}: the rerun recomputed "
                                      f"({launches}, {placed})")
@@ -2063,8 +2067,9 @@ def phase_resume(card: str, tmp: str) -> None:
                           "launches": launches, "placed": placed,
                           "regions": out.n_regions,
                           "checkpoint_lines": n_lines})
-        if not steps[2]["placed"]["host"] + steps[2]["placed"]["card"] \
-                < steps[0]["placed"]["host"] + steps[0]["placed"]["card"]:
+        n_of = lambda st: sum(st["placed"][k] for k in ("host", "card",
+                                                          "card_f64"))
+        if not n_of(steps[2]) < n_of(steps[0]):
             raise AssertionError(f"--resume {mode}: the cut checkpoint's run "
                                  f"recomputed everything: {steps}")
         done[mode] = steps
@@ -2107,9 +2112,14 @@ def phase_placement(card: str, dev, tmp: str) -> None:
         enum[name] = {"placed": _placed(out), "launches": launches,
                       "wall_seconds": wall, "census": _census(out.stage_seconds),
                       "region_phase": out.stage_seconds.get("region_phase")}
+    # all-host: the enumeration workload's problems run in float64 on the
+    # card, which launches no hand kernel
     if any(enum["all_host"]["launches"].values()) \
-            or enum["all_host"]["placed"]["card"]:
-        raise AssertionError(f"all-host launched a kernel: {enum['all_host']}")
+            or enum["all_host"]["placed"]["card"] \
+            or enum["all_host"]["placed"]["host"] \
+            or not enum["all_host"]["placed"]["card_f64"]:
+        raise AssertionError(f"all-host launched a kernel or left the "
+                             f"float64 route: {enum['all_host']}")
     if not all(enum["off"]["launches"].values()) \
             or enum["off"]["placed"]["host"]:
         raise AssertionError(f"router off left the card: {enum['off']}")

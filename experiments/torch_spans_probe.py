@@ -11,7 +11,10 @@ of the CLI with span recording off and on in turns (off, on, on, off, ...
 recording, and from each recorded pass the span metrics (the main thread's
 waits, the region stages' wall and thread CPU seconds, the phase's host
 placements and f64 reruns, the device programs' runs, and how much of the
-region pipeline the main thread's waits and finalize cover). Last, one
+region pipeline the main thread's waits and finalize cover; on the card
+also each pass's peak of device memory and the device programs it built,
+``graphs.BUILDS``: key and bytes held; after each pass the process's
+resident set and its high-water mark). Last, one
 pass with recording on under ``torch.profiler`` (CUDA activity only, with
 the harness's markers): the ten longest idle gaps labelled with the host's
 part and the share of the idle device time inside the phase worker's
@@ -70,6 +73,12 @@ def _metrics(p: dict, recs) -> dict:
         "region.host_thread_cpu_s": HS.span_seconds(recs, REGION, cpu=True),
         "phase.region_phase_s": p["stage"]["region_phase"],
         "phase.host_placed_s": HS.span_seconds(recs, ("phase.host_placed",)),
+        "phase.card_f64_placed_s": HS.span_seconds(
+            recs, ("phase.card_f64_placed",)),
+        **{f"count.{k}": p["stage"].get(k, 0) for k in (
+            "phase_host_placed", "phase_card_placed", "phase_card_f64_placed",
+            "phase_enum_buckets", "phase_single_regions",
+            "phase_safety_recompute")},
         "phase.single_region_s": HS.span_seconds(
             recs, ("phase.single_region",)),
         "phase.enum_bucket_s": HS.span_seconds(recs, ("phase.enum_bucket",)),
@@ -88,6 +97,17 @@ def _metrics(p: dict, recs) -> dict:
         "regions_pipeline_s": pipe,
         "n_spans": len(recs),
     }
+
+
+def _rss_mib() -> dict:
+    """The process's resident set now and its high-water mark, MiB."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, val = line.partition(":")
+            if key in ("VmRSS", "VmHWM"):
+                out[key.lower() + "_mib"] = int(val.split()[0]) / 1024
+    return out
 
 
 def _self_by_name(recs, role: str, top: int = 12) -> list:
@@ -118,6 +138,7 @@ def main(argv=None) -> int:
 
     from longcallr_tpu_torch import _build, cli, native
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
+    from longcallr_tpu_torch.phasing import graphs as G
     from longcallr_tpu_torch.utils import spans
 
     bench = manifest.load()
@@ -148,8 +169,10 @@ def main(argv=None) -> int:
         if contig:
             argv += ["-x", contig]
         g0 = dict(CK.GRAPHS)
+        G.reset_builds()
         if cuda:
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         if record:
             spans.enable()
         t = time.monotonic()
@@ -164,7 +187,11 @@ def main(argv=None) -> int:
             raise RuntimeError(f"cli.main returned {rc}")
         p = {"seconds": seconds, "reads_per_s": counts["n_reads"] / seconds,
              "record": record, "stage": dict(cli.LAST_RUN.stage_seconds),
-             "graphs": {k: CK.GRAPHS[k] - g0[k] for k in g0}}
+             "graphs": {k: CK.GRAPHS[k] - g0[k] for k in g0},
+             "builds": [dict(b) for b in G.BUILDS]}
+        if cuda:
+            p["device_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        p.update(_rss_mib())
         return p, recs
 
     one_pass(False, "warm", first)
@@ -178,8 +205,13 @@ def main(argv=None) -> int:
                 p["main_self"] = _self_by_name(recs, "main")
                 p["prep_self"] = _self_by_name(recs, "prep")
             passes.append(p)
-            print(json.dumps({k: p[k] for k in ("seconds", "reads_per_s",
-                                                "record")}), flush=True)
+            print(json.dumps({
+                **{k: p[k] for k in ("seconds", "reads_per_s", "record")},
+                "device_peak_mib": p.get("device_peak_mib"),
+                **_rss_mib(),
+                "builds": len(p["builds"]),
+                "bytes_held": sum(b["bytes_held"] for b in p["builds"])}),
+                flush=True)
 
     on = [p["reads_per_s"] for p in passes if p["record"]]
     off = [p["reads_per_s"] for p in passes if not p["record"]]

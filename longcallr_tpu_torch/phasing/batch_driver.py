@@ -16,8 +16,9 @@ the stage counters (beside them a census: ``phase_buckets``,
 ``phase_enum_buckets`` and ``phase_single_regions`` count the iterative
 buckets, the enumeration buckets and the regions phased alone), and the
 placement by work: one router call per bucket
-(``utils/device.phase_problem_device``), and a bucket of little work on a
-card run goes member by member through the per-region path on the host.
+(``utils/device.phase_placement``), and a bucket of little work on a card
+run goes member by member through the per-region path, in float64 on the
+card for an enumeration bucket and on the host for an iterative one.
 
 With ``mesh=`` (``parallel/mesh.make_mesh``) every bucket is cut along the
 mesh's "regions" axis, once, and its rows run the bucket programs at the
@@ -43,7 +44,7 @@ from ..config import CallerConfig
 from ..ops.candidates import CandidateSet
 from ..parallel import giant
 from ..parallel import mesh as M
-from ..utils.device import phase_problem_device, resolve_device
+from ..utils.device import Placement, phase_placement, resolve_device
 from ..utils.spans import span, stage_add
 from . import kernels_fast as KF
 from . import optimize as O
@@ -200,21 +201,24 @@ def _safety_net(split: bool) -> bool:
                 and not O.USE_F32_KERNELS)
 
 
-def _placed_on_host(group: List[_Prepared], cfg: CallerConfig, work: int,
-                    device: torch.device,
-                    out: List[Optional[PhaseState]]) -> bool:
+def _placed_per_region(group: List[_Prepared], cfg: CallerConfig,
+                        work: int, enumeration: bool, device: torch.device,
+                        out: List[Optional[PhaseState]]) -> bool:
     """The bucket's one router call. A bucket of little work on a card run
-    is phased here, member by member on the per-region path on the host
-    (byte-equal by the batched == per-region seed contract, and without a
-    bucket program's launches), and True is returned."""
-    placed = phase_problem_device(work, device)
-    if placed == device:
+    is phased here, member by member on the per-region path (byte-equal by
+    the batched == per-region seed contract, and without a bucket program's
+    launches): an enumeration bucket in float64 on the card, an iterative
+    one on the host. Returns whether it was."""
+    placed = phase_placement(work, device, enumeration)
+    if placed == Placement(device):
         return False
-    with span("phase.host_placed"):
+    with span("phase.card_f64_placed" if placed.f64
+              else "phase.host_placed"):
         for it in group:
             out[it.index] = O.phase_region_on(it.frags, it.cands, cfg,
-                                              it.seed, it.apply_ds, placed,
-                                              O.split_mode(placed))
+                                              it.seed, it.apply_ds,
+                                              placed.device,
+                                              O.placed_split(placed))
     return True
 
 
@@ -232,8 +236,8 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
         return
     B = len(group)
     C_est = enumeration_order(I0).shape[0]
-    if mesh is None and _placed_on_host(group, cfg, B * C_est * K * I_pad,
-                                        device, out):
+    if mesh is None and _placed_per_region(group, cfg, B * C_est * K * I_pad,
+                                           True, device, out):
         return
     stage_add("phase_enum_buckets", 1)
     p, bq, read_base, site_mask = _fill_cells(group, K, I_pad)
@@ -326,9 +330,9 @@ def _phase_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
 
     B = len(group)
     max_rounds = max(it.frags.p.shape[1] // 4 + 1 for it in group)
-    if mesh is None and _placed_on_host(group, cfg,
-                                        B * K * I_pad * max_rounds, device,
-                                        out):
+    if mesh is None and _placed_per_region(group, cfg,
+                                           B * K * I_pad * max_rounds, False,
+                                           device, out):
         return
     stage_add("phase_buckets", 1)
     conserved = np.zeros((B, I_pad), bool)

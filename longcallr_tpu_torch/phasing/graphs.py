@@ -13,8 +13,8 @@ set.
 On a CUDA device (``ENABLED``), a program is built once per shape and kept
 (``run``; ``free_all`` drops them): every piece is called once eagerly (a
 warm-up that loads the kernels; its launches are not counted), then
-captured as a ``torch.cuda.CUDAGraph`` on a stream of its own, all pieces
-in one memory pool (they never run at the same time); the
+captured as a ``torch.cuda.CUDAGraph`` on the card's one capture stream,
+all pieces in one memory pool (they never run at the same time); the
 ``csrc/graph_program.cu`` library composes the captured graphs into one
 parent graph, each loop a conditional WHILE node whose body is its pieces
 followed by a one-thread kernel that sets the condition from the flag and
@@ -107,6 +107,27 @@ def _card_lock(device: torch.device) -> threading.RLock:
     run and destroyed: one at a time on a card."""
     with _locks_lock:
         return _locks.setdefault(device.index, threading.RLock())
+
+
+# one stream per card on which every program is captured. cuBLAS keeps a
+# workspace (32 MiB on an H100) for each pair of handle and stream that
+# ran a product, for the life of the process, so captures on streams taken
+# anew from the pool leave one behind on each stream they come to: a pass
+# of 24 builds over the benchmark's transcriptome input peaked at 1,375 MiB
+# of device memory that way and at 383 MiB with one capture stream
+# (PERF.md).
+# Programs run one at a time on a card (``_card_lock``), so those captured
+# on one stream can share its workspace.
+_capture_streams: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream on which ``device``'s programs are captured (the caller
+    holds the card's lock)."""
+    with _locks_lock:
+        if device.index not in _capture_streams:
+            _capture_streams[device.index] = torch.cuda.Stream(device)
+        return _capture_streams[device.index]
 
 
 def _add_graphs(key: str, seconds: float) -> None:
@@ -261,37 +282,39 @@ class Program:
         from .._build import load
 
         dev = self.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
         pool = torch.cuda.graph_pool_handle()
-        stream = side.cuda_stream
-        with _card_lock(dev), torch.cuda.stream(side):
-            with span("programs.capture", timed=True) as cap:
-                for p in self.pieces:
-                    # a workspace this stream holds stays with its piece's
-                    # graph
+        # the stream is shared: it waits, and captures, under the card's lock
+        with _card_lock(dev):
+            side = _capture_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            stream = side.cuda_stream
+            with torch.cuda.stream(side):
+                with span("programs.capture", timed=True) as cap:
+                    for p in self.pieces:
+                        # a workspace this stream holds stays with its
+                        # piece's graph
+                        self._kept += CK.take_workspaces(dev, stream)
+                        graph = torch.cuda.CUDAGraph(keep_graph=True)
+                        with CK.recording() as launches:
+                            graph.capture_begin(
+                                pool=pool, capture_error_mode="thread_local")
+                            try:
+                                p.fn()
+                            finally:
+                                graph.capture_end()
+                        self._captured[id(p)] = (graph, launches)
                     self._kept += CK.take_workspaces(dev, stream)
-                    graph = torch.cuda.CUDAGraph(keep_graph=True)
-                    with CK.recording() as launches:
-                        graph.capture_begin(pool=pool,
-                                            capture_error_mode="thread_local")
-                        try:
-                            p.fn()
-                        finally:
-                            graph.capture_end()
-                    self._captured[id(p)] = (graph, launches)
-                self._kept += CK.take_workspaces(dev, stream)
-            with span("programs.instantiate", timed=True) as inst:
-                lib = load()
-                g = ctypes.c_void_p()
-                _raise("graph create", lib.gp_graph_create(dev.index,
-                                                           ctypes.byref(g)))
-                self._graph = g.value
-                self._compose(lib, self._graph, self.nodes, None)
-                x = ctypes.c_void_p()
-                _raise("instantiate", lib.gp_instantiate(
-                    self._graph, dev.index, ctypes.byref(x)))
-                self._exec = x.value
+                with span("programs.instantiate", timed=True) as inst:
+                    lib = load()
+                    g = ctypes.c_void_p()
+                    _raise("graph create", lib.gp_graph_create(
+                        dev.index, ctypes.byref(g)))
+                    self._graph = g.value
+                    self._compose(lib, self._graph, self.nodes, None)
+                    x = ctypes.c_void_p()
+                    _raise("instantiate", lib.gp_instantiate(
+                        self._graph, dev.index, ctypes.byref(x)))
+                    self._exec = x.value
         return {"capture_seconds": warm_seconds + cap.seconds,
                 "instantiate_seconds": inst.seconds,
                 "captures": len(self.pieces)}

@@ -45,7 +45,7 @@ import torch
 from ..config import CallerConfig
 
 from ..ops.candidates import CandidateSet
-from ..utils.device import phase_problem_device, resolve_device
+from ..utils.device import Placement, phase_placement, resolve_device
 from ..utils.spans import span, stage_add
 from . import cuda_draws as CD
 from . import graphs
@@ -116,6 +116,13 @@ def split_mode(device: torch.device) -> bool:
     if USE_F32_KERNELS is not None:
         return USE_F32_KERNELS
     return torch.device(device).type == "cuda"
+
+
+def placed_split(placed: Placement) -> bool:
+    """The mode of a routed phase problem: its device's, or for a problem
+    placed in float64 (``placed.f64``) the host's, whatever its device:
+    float64 unless LONGCALLR_F32_KERNELS forces split."""
+    return split_mode(torch.device("cpu") if placed.f64 else placed.device)
 
 
 # ---------------------------------------------------------------------------
@@ -983,12 +990,13 @@ def phase_region(frags: FragmentMatrix, cands: CandidateSet,
                  device: Optional[torch.device] = None) -> PhaseState:
     """Run the full phase() optimization for one region of a run on
     ``device`` (``None``: the CUDA device, and it raises where there is
-    none). A region of little work is placed on the host
-    (utils/device.phase_problem_device; work = cells x rounds, the per-
-    config ascents playing the rounds' part on the enumeration path); a
-    giant iterative region on a process with several cards goes to the
-    reads-sharded ascent first (parallel/giant.py). Returns the final state
-    as host numpy, sliced back to true sizes."""
+    none). A region of little work is placed by utils/device.phase_placement
+    (work = cells x rounds, the per-config ascents playing the rounds' part
+    on the enumeration path): on a card run an enumeration region in
+    float64 on the card, an iterative one on the host. A giant iterative
+    region on a process with several cards goes to the reads-sharded ascent
+    first (parallel/giant.py). Returns the final state as host numpy,
+    sliced back to true sizes."""
     device = resolve_device() if device is None else torch.device(device)
     K0, I0 = frags.p.shape
     if I0 == 0:
@@ -1005,13 +1013,14 @@ def phase_region(frags: FragmentMatrix, cands: CandidateSet,
                 st = giant.phase_region_sharded(frags, cands, cfg, seed,
                                                 apply_downsampling, devices)
                 return PhaseState(st.sigma[:K0], st.delta[:I0], st.eta[:I0])
-    if I0 <= cfg.max_enum_snps:
+    enumeration = I0 <= cfg.max_enum_snps
+    if enumeration:
         work = (1 << min(I0, 40)) * K * I_pad
     else:
         work = K * I_pad * (I0 // 4 + 1)
-    device = phase_problem_device(work, device)
+    placed = phase_placement(work, device, enumeration)
     return phase_region_on(frags, cands, cfg, seed, apply_downsampling,
-                           device, split_mode(device))
+                           placed.device, placed_split(placed))
 
 
 def phase_region_on(frags: FragmentMatrix, cands: CandidateSet,
@@ -1019,7 +1028,8 @@ def phase_region_on(frags: FragmentMatrix, cands: CandidateSet,
                     device: torch.device, split: bool) -> PhaseState:
     """phase() for one region on exactly ``device`` in the given mode, past
     the placement: what ``phase_region`` runs once it has routed, and what
-    a bucket placed on the host runs for each of its members."""
+    a bucket placed on the host, or in float64 on the card, runs for each
+    of its members."""
     K0, I0 = frags.p.shape
     st = _phase_region_padded_impl(
         frags, cands, cfg, seed, apply_downsampling, K0, I0,

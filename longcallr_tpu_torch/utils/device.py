@@ -6,20 +6,24 @@ default device: the CLI's ``--platform`` flag resolves to one
 that device.
 
 Placement by size: a problem too small to pay for its kernel launches on
-the card runs on the host instead. ``small_problem_device`` (candidate
-selection, in cells) and ``phase_problem_device`` (phasing, in work units)
-take the run's device and return the device to use; nothing is ambient.
-This is routing by size, not a fallback: neither function asks whether a
-card is present, and a run whose device is the CPU gets the CPU back for
-every size. A problem placed on the host runs the f64 path there (split
-mode belongs to CUDA tensors, ``phasing/optimize.split_mode``), which
-writes the same bytes.
+the card runs elsewhere. ``small_problem_device`` (candidate selection, in
+cells) returns the device to use; ``phase_placement`` (phasing, in work
+units) returns a ``Placement``, the device and whether the problem runs
+member by member in float64 there. Nothing is ambient. This is routing by
+size, not a fallback: neither function asks whether a card is present, and
+a run whose device is the CPU gets the CPU back for every size. A phase
+problem placed on the host runs the f64 path there (split mode belongs to
+CUDA tensors, ``phasing/optimize.split_mode``), and a small enumeration
+problem on a card run the same f64 path on the card: both write the bytes
+of the split path's safety net.
 
 The thresholds are the card's own, set from
 ``experiments/torch_placement_sweep.py`` on an NVIDIA H100 80GB HBM3 (PERF.md
 has the run). The environment variables keep the JAX package's names:
 LONGCALLR_TPU_MIN_CELLS and LONGCALLR_TPU_MIN_PHASE_WORK (0 places
-everything on the run's device, a huge value everything on the host).
+everything on the run's device in its own mode; a huge value puts every
+candidate call and every iterative phase problem on the host, and every
+enumeration phase problem of a card run in float64 on the card).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -49,24 +53,46 @@ MIN_ACCEL_CELLS = int(os.environ.get("LONGCALLR_TPU_MIN_CELLS",
 # about (rounds x iterations) passes over the cell matrix. Work unit: cells
 # x rounds, B·K·I_pad·(I//4+1) for the iterative path and B·2^I·K·I_pad for
 # the enumeration path (the per-config ascents play the rounds' part).
-# Problems of less work run on the host. Measured on the same card, one
-# region at a time: an enumeration region crosses at work 2^18.7 (the card
-# takes 11-43 ms whatever the size, its f64 recompute included; the host
-# 3 ms at 2^13, 10 at 2^18, 44 at 2^20, 132 at 2^23), an iterative region
-# only at 2^24 (the card's time follows the rounds, 37 ms at 2^14 and 181
-# at 2^23 against the host's 16 and 140). The default is the lower
-# crossing: a bucket of B regions costs the card about what one region
-# does and the host B times as much, so buckets cross below either; the
-# price is a lone iterative region of 2^19 to 2^24 on the card, up to
-# 41 ms or 2x slower than on the host.
+# At or above the threshold a problem runs on the run's device in its mode
+# (split on a card, with the safety net). Below it, on a card run, an
+# enumeration problem runs member by member in float64 on the card and an
+# iterative one on the host. Measured on the same card, one region at a
+# time (experiments/torch_placement_sweep.py; PERF.md has the runs): an
+# enumeration region takes 2.2 ms in float64 on the card at work 2^13 and
+# 15.6 ms at 2^23, against 4.8, 14.8 and 473 ms on the host at 2^13, 2^18
+# and 2^23 and 7.6-39 ms in split mode with its float64 recompute (which
+# crosses the host at 2^16.3); with 8 other threads preparing regions, as
+# the pipeline's pool does, the host takes 490-995 ms and the card's
+# float64 route 58-87 ms. So below the threshold the card's float64 route
+# wins at every measured size, busy or idle; at and above it problems keep
+# split mode and its safety net. The threshold itself is the split route's
+# crossing measured before the device programs (2^18.7-2^19.1): buckets of
+# B regions cost the card about what one region does and the host B times
+# as much. An iterative region crossed only at 2^24 then (37 ms at 2^14,
+# 181 at 2^23, against the host's 16 and 140); with the device programs
+# the card won at every measured size (13.9 ms against 22.6 at 2^14), but
+# no benchmark cell runs iterative regions, so they keep the host below
+# the threshold until one measures them.
 MIN_ACCEL_PHASE_WORK = int(os.environ.get("LONGCALLR_TPU_MIN_PHASE_WORK",
                                           str(1 << 19)))
 
+
+class Placement(NamedTuple):
+    """Where the router put a phase problem: ``device``, and ``f64``: True
+    where the problem runs member by member on the per-region path in
+    float64 there, in the mode a host placement runs (a card run's
+    enumeration problem below MIN_ACCEL_PHASE_WORK)."""
+
+    device: torch.device
+    f64: bool = False
+
+
 # Phase problems (regions of the per-region loop, buckets of the batched
-# pipeline) by the device the router returned; caller.py copies the
-# differences over a run into CallerOutputs.stage_seconds
-# (phase_host_placed / phase_card_placed).
-PLACEMENTS = {"host": 0, "card": 0}
+# pipeline) by where the router placed them: on the host, on the card in
+# its own mode, on the card in float64; caller.py copies the differences
+# over a run into CallerOutputs.stage_seconds (phase_host_placed /
+# phase_card_placed / phase_card_f64_placed).
+PLACEMENTS = {"host": 0, "card": 0, "card_f64": 0}
 
 # Phase problems at or above the threshold that ran on the host because the
 # run's device is the CPU. Counted, and warned of once per process, so that
@@ -102,17 +128,28 @@ def small_problem_device(n_cells: int, device: torch.device) -> torch.device:
     return device if n_cells >= MIN_ACCEL_CELLS else _CPU
 
 
-def phase_problem_device(work: int, device: torch.device) -> torch.device:
-    """The host for a phase problem below MIN_ACCEL_PHASE_WORK (work = cells
-    x rounds), else ``device``. One call per problem: it counts the
-    placement, and a problem of card size on a CPU run as degraded."""
+def phase_placement(work: int, device: torch.device,
+                    enumeration: bool = False) -> Placement:
+    """Where a phase problem of ``work`` (cells x rounds) runs. At or above
+    MIN_ACCEL_PHASE_WORK: on ``device`` in its own mode. Below it, on a
+    card run: an ``enumeration`` problem in float64 on the card, any other
+    on the host. A CPU run gets the CPU at every size. One call per
+    problem: it counts the placement, and a problem of card size on a CPU
+    run as degraded."""
     global DEGRADED_PLACEMENTS, _warned_degraded
     wants_card = work >= MIN_ACCEL_PHASE_WORK
-    placed = device if wants_card else _CPU
+    if wants_card or device.type == "cpu":
+        placed = Placement(device)
+    elif enumeration:
+        placed = Placement(device, f64=True)
+    else:
+        placed = Placement(_CPU)
+    where = ("card_f64" if placed.f64 else
+             "card" if placed.device.type == "cuda" else "host")
     warn = False
     with _lock:
-        PLACEMENTS["card" if placed.type == "cuda" else "host"] += 1
-        if wants_card and placed.type == "cpu":
+        PLACEMENTS[where] += 1
+        if wants_card and placed.device.type == "cpu":
             DEGRADED_PLACEMENTS += 1
             warn, _warned_degraded = not _warned_degraded, True
     if warn:

@@ -5,8 +5,12 @@ Counterparts of ``tests/test_kernels_fast.py::test_phase_work_routing`` and
 call site hands the router (held against the JAX package's own router calls
 on the same regions), and outputs that do not depend on the placement:
 bytes equal with the router at its default, forced off (threshold 0) and
-forced all-host (threshold 2^62). No card is present here, so a
-``torch.device("cuda")`` is only ever compared, never allocated on.
+forced all-host (threshold 2^62, which on a card run keeps the enumeration
+problems on the card in float64). The port's rule differs from the JAX
+package's below the threshold on a card run: an enumeration problem runs
+member by member in float64 on the card, an iterative one on the host. No
+card is present here, so a ``torch.device("cuda")`` is only ever compared,
+never allocated on: a spy stands in for the card's per-region calls.
 Tolerance: equality.
 """
 
@@ -30,6 +34,7 @@ from longcallr_tpu_torch.ops import candidates as TC
 from longcallr_tpu_torch.phasing import batch_driver as TBD
 from longcallr_tpu_torch.phasing import optimize as TO
 from longcallr_tpu_torch.pipeline.caller import run
+from longcallr_tpu_torch.pipeline import engine as TE
 from longcallr_tpu_torch.pipeline.engine import prepare_region
 from longcallr_tpu_torch.tiles.regions import extract_isolated_regions_parallel
 from longcallr_tpu_torch.utils import device as D
@@ -54,14 +59,22 @@ def thresholds(monkeypatch):
 
 
 def test_phase_work_routing(thresholds):
-    """Below the threshold the host, at it the run's device; a CPU run
-    gets the CPU at every size."""
+    """Below the threshold on a card run an enumeration problem runs in
+    float64 on the card and an iterative one on the host; at it and above
+    both run on the card in its own mode; a CPU run gets the CPU at every
+    size."""
     t = D.MIN_ACCEL_PHASE_WORK
-    assert D.phase_problem_device(t - 1, CARD) == CPU
-    assert D.phase_problem_device(t, CARD) == CARD
-    assert D.phase_problem_device(1 << 40, CARD) == CARD
-    assert D.phase_problem_device(1, CPU) == CPU
-    assert D.phase_problem_device(1 << 40, CPU) == CPU
+    P = D.Placement
+    assert D.phase_placement(t - 1, CARD, enumeration=True) == P(CARD, True)
+    assert D.phase_placement(1, CARD, enumeration=True) == P(CARD, True)
+    assert D.phase_placement(t - 1, CARD) == P(CPU, False)
+    assert D.phase_placement(1, CARD, enumeration=False) == P(CPU, False)
+    for enum in (False, True):
+        assert D.phase_placement(t, CARD, enum) == P(CARD, False)
+        assert D.phase_placement(1 << 40, CARD, enum) == P(CARD, False)
+        assert D.phase_placement(1, CPU, enum) == P(CPU, False)
+        assert D.phase_placement(t - 1, CPU, enum) == P(CPU, False)
+        assert D.phase_placement(1 << 40, CPU, enum) == P(CPU, False)
     c = D.MIN_ACCEL_CELLS
     assert D.small_problem_device(c - 1, CARD) == CPU
     assert D.small_problem_device(c, CARD) == CARD
@@ -71,36 +84,52 @@ def test_phase_work_routing(thresholds):
 @pytest.mark.parametrize("value,below,at", [(0, None, CARD),
                                             (ALL_HOST, CPU, CPU)])
 def test_router_forced_off_and_all_host(monkeypatch, value, below, at):
+    """Off (0): everything on the run's device in its own mode. All-host
+    (2^62): every candidate call and iterative phase problem on the host,
+    every enumeration phase problem of a card run in float64 on the card;
+    a CPU run keeps the CPU either way."""
     monkeypatch.setattr(D, "MIN_ACCEL_PHASE_WORK", value)
     monkeypatch.setattr(D, "MIN_ACCEL_CELLS", value)
-    assert D.phase_problem_device(1 << 40, CARD) == at
+    P = D.Placement
+    assert D.phase_placement(1 << 40, CARD) == P(at, False)
     assert D.small_problem_device(1 << 40, CARD) == at
-    assert D.phase_problem_device(0, CARD) == (below or CARD)
+    assert D.phase_placement(0, CARD) == P(below or CARD, False)
     assert D.small_problem_device(0, CARD) == (below or CARD)
+    assert D.phase_placement(1 << 40, CARD, enumeration=True) == \
+        P(CARD, below is not None)
+    assert D.phase_placement(0, CARD, enumeration=True) == \
+        P(CARD, below is not None)
+    for enum in (False, True):
+        assert D.phase_placement(0, CPU, enum) == P(CPU, False)
+        assert D.phase_placement(1 << 40, CPU, enum) == P(CPU, False)
 
 
 def test_degraded_placement_surfaced(thresholds, caplog, monkeypatch):
     """A problem of card size on a CPU run is counted and warned of once; a
-    problem below the threshold is on the host by design and not counted;
-    on a card run nothing is degraded."""
+    problem below the threshold is on the host (or in float64 on the card)
+    by design and not counted; on a card run nothing is degraded. Each
+    call counts its placement once."""
     monkeypatch.setattr(D, "_warned_degraded", False)
     before = D.DEGRADED_PLACEMENTS
     placed = dict(D.PLACEMENTS)
     t = D.MIN_ACCEL_PHASE_WORK
     with caplog.at_level(logging.WARNING, logger="longcallr_tpu_torch"):
-        assert D.phase_problem_device(t, CPU) == CPU
-        assert D.phase_problem_device(2 * t, CPU) == CPU
+        assert D.phase_placement(t, CPU).device == CPU
+        assert D.phase_placement(2 * t, CPU, enumeration=True).device == CPU
     assert D.DEGRADED_PLACEMENTS == before + 2
     warned = [r.getMessage() for r in caplog.records
               if "run's device is the CPU" in r.getMessage()]
     assert len(warned) == 1                    # once per process
     assert "100x" not in warned[0]             # no other hardware's numbers
-    D.phase_problem_device(1, CPU)
-    D.phase_problem_device(1, CARD)
-    D.phase_problem_device(t, CARD)
+    D.phase_placement(1, CPU)
+    D.phase_placement(1, CARD)
+    D.phase_placement(t, CARD)
+    D.phase_placement(1, CARD, enumeration=True)
+    D.phase_placement(t, CARD, enumeration=True)
     assert D.DEGRADED_PLACEMENTS == before + 2
     assert D.PLACEMENTS["host"] == placed["host"] + 4
-    assert D.PLACEMENTS["card"] == placed["card"] + 1
+    assert D.PLACEMENTS["card"] == placed["card"] + 2
+    assert D.PLACEMENTS["card_f64"] == placed["card_f64"] + 1
 
 
 def test_resolve_device_still_raises_without_a_card():
@@ -166,15 +195,35 @@ def regions(tmp_path_factory):
     return items, cfg, jcfg, (bam_p, fa_p)
 
 
-def _spy(monkeypatch, modules, name="phase_problem_device"):
-    """Records the work of every router call made through ``modules``."""
+def _spy(monkeypatch, modules, name="phase_placement"):
+    """Records the work of every router call made through ``modules``
+    (the port's router is ``phase_placement``, the JAX package's
+    ``phase_problem_device``)."""
     seen = []
     for mod in modules:
         orig = getattr(mod, name)
         monkeypatch.setattr(
-            mod, name, lambda work, *a, _o=orig: seen.append(int(work))
-            or _o(work, *a))
+            mod, name, lambda work, *a, _o=orig, **kw: seen.append(int(work))
+            or _o(work, *a, **kw))
     return seen
+
+
+def _card_stand_in(monkeypatch):
+    """Stands in for the card in ``optimize.phase_region_on``: a call on
+    CARD is recorded as (the region's cell shape, device, split) and run on
+    the CPU in the same mode, so that nothing is allocated on a card.
+    Returns the list of recorded calls on CARD."""
+    calls = []
+    orig = TO.phase_region_on
+
+    def on(frags, cands, cfg, seed, apply_ds, device, split):
+        if device == CARD:
+            calls.append((frags.p.shape, device, split))
+            device = CPU
+        return orig(frags, cands, cfg, seed, apply_ds, device, split)
+
+    monkeypatch.setattr(TO, "phase_region_on", on)
+    return calls
 
 
 def test_per_region_router_work_matches_the_jax_package(regions,
@@ -184,7 +233,7 @@ def test_per_region_router_work_matches_the_jax_package(regions,
     package hands its router for the same regions."""
     items, cfg, jcfg, _ = regions
     got = _spy(monkeypatch, [TO])
-    want = _spy(monkeypatch, [JO])
+    want = _spy(monkeypatch, [JO], "phase_problem_device")
     for (frags, cands, seed, ds), (jf, jc, jseed, jds) in items:
         a = TO.phase_region(frags, cands, cfg, seed, ds, device=CPU)
         b = JO.phase_region(jf, jc, jcfg, jseed, jds)
@@ -204,7 +253,7 @@ def test_bucket_router_work_matches_the_jax_package(regions, monkeypatch):
     JAX package's work for the same buckets."""
     items, cfg, jcfg, _ = regions
     got = _spy(monkeypatch, [TBD, TO])
-    want = _spy(monkeypatch, [JBD, JO])
+    want = _spy(monkeypatch, [JBD, JO], "phase_problem_device")
     a = TBD.phase_regions_batched([t for t, _ in items], cfg, device=CPU)
     b = JBD.phase_regions_batched([j for _, j in items], jcfg)
     for x, y in zip(a, b):
@@ -213,21 +262,108 @@ def test_bucket_router_work_matches_the_jax_package(regions, monkeypatch):
     assert sorted(got) == sorted(want) and len(got) >= 2
 
 
+def _census():
+    """The placement counts, the f64 reruns and the stage totals now."""
+    return dict(D.PLACEMENTS), TO.N_F64_RERUNS, dict(TE.STAGE_TOTALS)
+
+
 def test_bucket_below_the_threshold_goes_to_the_host(regions, monkeypatch):
     """A run on a card whose buckets are all below the threshold phases
-    every member on the host (nothing is allocated on the card), one router
-    call a bucket, with the states of the CPU run's buckets."""
+    every member of an iterative bucket on the host, one router call a
+    bucket, with the states of the CPU run's buckets; its enumeration
+    problems stay on the card (in float64, through the stand-in)."""
     items, cfg, _, _ = regions
     want = TBD.phase_regions_batched([t for t, _ in items], cfg, device=CPU)
     monkeypatch.setattr(D, "MIN_ACCEL_PHASE_WORK", ALL_HOST)
     placed = dict(D.PLACEMENTS)
     calls = _spy(monkeypatch, [TBD, TO])
+    on_card = _card_stand_in(monkeypatch)
     got = TBD.phase_regions_batched([t for t, _ in items], cfg, device=CARD)
     for x, y in zip(got, want):
         for u, v in zip(x, y):
             np.testing.assert_array_equal(u, v)
-    assert D.PLACEMENTS["host"] - placed["host"] == len(calls) >= 2
+    n_iter = sum(f.p.shape[1] > cfg.max_enum_snps for (f, *_), _ in items)
+    hosted = D.PLACEMENTS["host"] - placed["host"]
+    assert 1 <= hosted <= n_iter
+    assert hosted + D.PLACEMENTS["card_f64"] - placed["card_f64"] \
+        == len(calls) >= 2
     assert D.PLACEMENTS["card"] == placed["card"]
+    assert all(I0 <= cfg.max_enum_snps for (_, I0), _, _ in on_card)
+
+
+def test_small_enumeration_bucket_runs_in_f64_on_the_card(regions,
+                                                          monkeypatch):
+    """A card run's enumeration bucket below the threshold calls
+    ``phase_region_on`` once per member with the run's device and
+    ``split=False`` (the per-region float64 path), lands on the CPU run's
+    states, is counted once in ``PLACEMENTS["card_f64"]`` and is no safety
+    rerun."""
+    items, cfg, _, _ = regions
+    enum = [t for t, _ in items if t[0].p.shape[1] <= cfg.max_enum_snps]
+    K0, I0 = enum[0][0].p.shape
+    bucket = [it for it in enum
+              if (TO._bucket(it[0].p.shape[0]), it[0].p.shape[1])
+              == (TO._bucket(K0), I0)]
+    assert len(bucket) >= 2                 # one enumeration bucket
+    want = TBD.phase_regions_batched(bucket, cfg, device=CPU)
+    placed, reruns, totals = _census()
+    on_card = _card_stand_in(monkeypatch)
+    got = TBD.phase_regions_batched(bucket, cfg, device=CARD)
+    for x, y in zip(got, want):
+        for u, v in zip(x, y):
+            np.testing.assert_array_equal(u, v)
+    assert on_card == [(it[0].p.shape, CARD, False) for it in bucket]
+    assert D.PLACEMENTS["card_f64"] == placed["card_f64"] + 1
+    assert D.PLACEMENTS["host"] == placed["host"]
+    assert D.PLACEMENTS["card"] == placed["card"]
+    assert TO.N_F64_RERUNS == reruns
+    assert TE.STAGE_TOTALS.get("phase_safety_recompute", 0) \
+        == totals.get("phase_safety_recompute", 0)
+    assert TE.STAGE_TOTALS.get("phase_enum_buckets", 0) \
+        == totals.get("phase_enum_buckets", 0)
+
+
+def test_lone_enumeration_region_runs_in_f64_on_the_card(regions,
+                                                         monkeypatch):
+    """``phase_region`` on a card run routes a small enumeration region to
+    float64 on the card and a small iterative one to the host, with the
+    CPU run's states."""
+    items, cfg, _, _ = regions
+    monkeypatch.setattr(D, "MIN_ACCEL_PHASE_WORK", ALL_HOST)
+    on_card = _card_stand_in(monkeypatch)
+    placed = dict(D.PLACEMENTS)
+    n_enum = 0
+    for (frags, cands, seed, ds), _ in items:
+        want = TO.phase_region(frags, cands, cfg, seed, ds, device=CPU)
+        got = TO.phase_region(frags, cands, cfg, seed, ds, device=CARD)
+        for u, v in zip(got, want):
+            np.testing.assert_array_equal(u, v)
+        n_enum += frags.p.shape[1] <= cfg.max_enum_snps
+    assert 0 < n_enum < len(items)
+    assert len(on_card) == n_enum
+    assert all(dev == CARD and split is False for _, dev, split in on_card)
+    assert D.PLACEMENTS["card_f64"] - placed["card_f64"] == n_enum
+    # the CPU runs count as host placements, as do the iterative regions
+    assert D.PLACEMENTS["host"] - placed["host"] \
+        == 2 * len(items) - n_enum
+
+
+def test_the_benchmark_reads_the_card_f64_placements():
+    """``perfbench/metrics/phase.card_f64_placements.py`` reads the stage
+    count's mean over the passes, and nothing where no pass has it."""
+    import importlib.util
+    import types
+
+    spec = importlib.util.spec_from_file_location(
+        "card_f64_placements", os.path.join(
+            REPO, "perfbench", "metrics", "phase.card_f64_placements.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    p = lambda stage: types.SimpleNamespace(stage=stage)
+    ctx = {"passes": [p({"phase_card_f64_placed": 114.0}),
+                      p({"phase_card_f64_placed": 116.0})]}
+    assert mod.read(ctx) == 115.0
+    assert mod.read({"passes": [p({"phase_host_placed": 115.0})]}) is None
 
 
 def test_candidate_cells_reach_the_router(regions, monkeypatch):
@@ -268,7 +404,7 @@ def test_preset_golden_with_the_router(tmp_path, monkeypatch, name, router):
         == goldens.golden(name)
     st = out.stage_seconds
     assert 0 < st["phase_host_placed"] <= out.n_regions
-    assert st["phase_card_placed"] == 0
+    assert st["phase_card_placed"] == st["phase_card_f64_placed"] == 0
     if router == "all_host":
         assert out.n_degraded_placements == 0
     elif router == "off":
@@ -289,6 +425,7 @@ def test_cli_prints_the_placement_counts(regions, tmp_path, monkeypatch,
     n = int(cli.LAST_RUN.stage_seconds["phase_host_placed"])
     assert n >= 2 and f"count phase_host_placed: {n}" in lines
     assert "count phase_card_placed: 0" in lines
+    assert "count phase_card_f64_placed: 0" in lines
     degraded = [l for l in lines if "of card size run on the host" in l]
     assert bool(degraded) == (router == "off")
     if degraded:

@@ -33,14 +33,15 @@ GENOME = [("chrA", [(6000, 20, 160), (5000, 30, 200)]),
           ("chrB", [(4000, 25, 150), (5000, 20, 1300)])]
 
 # the stage keys a batched run of GENOME reported before the stages were
-# spans (the parent's run of the same input, with the same waves)
+# spans (the parent's run of the same input, with the same waves), and the
+# count of phase problems placed in float64 on the card
 STAGE_KEYS = {
     "load", "regions", "regions_pipeline", "vcf", "phased_bam",
     "phased_bam_bg", "total", "region_pileup", "region_candidates",
     "region_fragments", "region_phase", "region_assign", "region_records",
     "phase_buckets", "phase_tables", "phase_ascent1", "phase_blockflip",
     "phase_perturb", "phase_single_regions", "phase_host_placed",
-    "phase_card_placed"}
+    "phase_card_placed", "phase_card_f64_placed"}
 
 
 @pytest.fixture
