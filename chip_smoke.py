@@ -71,7 +71,15 @@ package) and fails on the first check that does not hold:
                device program and by the plain executor, the same count and
                body runs; a turn's device time over 20,000 turns in one
                launch, the plain executor's, and the kernel's own from
-               torch.profiler where it traces inside the program;
+               torch.profiler where it traces inside the program. The
+               keep-best of the enumeration programs
+               (phasing/cuda_keep_best.py, csrc/keep_best.cu) against its
+               plain version bit for bit: the objectives of 4 to 1,024
+               configurations (the transcriptome's chunk sizes; ties
+               inside, at and just above TIE_TOL), whole and cut into
+               chunks that carry the running best through ``prev``; timed
+               at 4 and 1,024 (device time warm, the plain version's host
+               time) beside the bound, (8 C + 32) bytes / 3.35 TB/s;
   3. tables  — the split-table build on a bucket of four deep regions
                against the build of each region alone;
   4. goldens — the four simulated preset workloads of the JAX package's
@@ -104,19 +112,22 @@ package) and fails on the first check that does not hold:
                device memory, and with the programs off as in 5; (h) the
                same with the finalize fan-out on
                (LONGCALLR_FINALIZE_MT_CELLS): equal to (a); (g) twelve
-               small loci of four SNPs each, which phase as enumeration
+               small loci of four SNPs each, batched and --no-batched, in
+               float64 on the card (the batched run phases each wave's
+               enumeration regions as one stream of programs with one host
+               read, phasing/enum_wave.py; no matvec kernel launched):
+               equal, and equal to the JAX package's digests, the batched
+               run once more with the programs off as in 5; both once more
+               in forced split mode, where the regions phase as enumeration
                buckets (regions x configs on the members-per-table form of
-               the kernels), batched and --no-batched: equal, and both once
-               more in forced split mode, where no region is recomputed in
-               f64: equal, and equal to the JAX package's digests, and
-               batched once more with the programs off as in 5; (i)
+               the kernels) and none is recomputed in f64: equal; (i)
                four loci of 6 SNPs and four of 10 SNPs at 432 and 510 reads
                each (tables of (512, 8) with 64 configs, of (512, 16) with
                1,024), run the four ways of (g): equal, equal to its
                digests, with at least one enumeration bucket and both
-               kernels launched. Every run that the kernel summary counts must
-               have launched the kernels only at shapes that phase 2
-               checked;
+               kernels launched in forced split mode. Every run that the
+               kernel summary counts must have launched the kernels only at
+               shapes that phase 2 checked;
   7. split vs f64 — (c) the deep input with LONGCALLR_F32_KERNELS=0 (f64
                path on the card), batched and --no-batched, each in a
                fresh process (both in one): byte-identical to the split
@@ -144,9 +155,9 @@ package) and fails on the first check that does not hold:
                utils/device.py); then the enumeration workload (g) and the
                preset goldens with the router at its default, off
                (threshold 0) and all-host (2^62: iterative problems on the
-               host, enumeration ones in float64 on the card): bytes equal,
-               the counts of problems placed on the host, on the card and
-               in float64 on the card printed;
+               host): bytes equal, (g)'s problems in float64 on the card
+               each way, the counts of problems placed on the host, on the
+               card and in float64 on the card printed;
  11. analysis — ASE and ASJ on a simulated phased BAM in this process,
                where CUDA is initialised: the fork gate is closed, the
                tables are written with threads=4 and equal threads=1's;
@@ -258,11 +269,13 @@ package) and fails on the first check that does not hold:
                (utils/goldens.ENUM_INPUTS: 8 contigs of 40 loci of 1.8 to
                9 kb, a SNP every 900 bp, 15x to 120x of 1.5 kb reads:
                62,028 reads) through the CLI with 8 threads, batched and
-               --no-batched, program off and on, every problem on the card:
-               bytes equal across the four legs and equal to the JAX
-               package's digests, the
+               --no-batched, program off and on, every problem in float64
+               on the card: bytes equal across the four legs and equal to
+               the JAX package's digests, the
                census of phase 19's CLI legs, at least 80 % of the regions
-               on the enumeration path; each kernel held against its plain
+               on the enumeration path, the batched legs' waves each phased
+               as one stream, no matvec kernel launched; then both legs in
+               forced split mode: each kernel held against its plain
                version at every shape these runs launched it at; the three
                shapes it launched at most are those phase 2 timed (a
                bucket chunk of 6 regions of (1024, 16) x 128 configs, one
@@ -293,14 +306,15 @@ launches: the bucket of two regions that a default wave makes; ``shapes``
 holds the same numbers for every timed shape, among them ``deep_bucket``,
 the four deep regions in one wave; ``launches`` counts the default batched
 deep run, ``launches_per_region`` the per-region one,
-``launches_one_wave`` the run of (f), ``launches_enum`` and
-``launches_enum_per_region`` the two runs of (g), ``launches_enum_deep`` and
-``launches_enum_deep_per_region`` the two of (i), ``launches_stream`` and
+``launches_one_wave`` the run of (f), ``launches_enum_split`` and
+``launches_enum_per_region_split`` the two forced split runs of (g),
+``launches_enum_deep_split`` and ``launches_enum_deep_per_region_split``
+the two of (i), ``launches_stream`` and
 ``launches_stream_resident`` the two legs of phase 8,
 ``launches_pod_2p_p0``, ``launches_pod_2p_p1`` and ``launches_pod_1p_p0``
 the workers of phase 12, ``launches_stats`` phase 15, ``launches_graphs_*``
-the runs with graphs of phase 19, ``launches_transcriptome_*`` those of
-phase 20 (whose three most launched shapes are ``tx_chunk``, ``tx_region``
+the runs with graphs of phase 19, ``launches_transcriptome_*_split`` the
+forced split runs of phase 20 (whose three most launched shapes are ``tx_chunk``, ``tx_region``
 and ``tx_small_region`` under ``shapes``), ``launches_mesh``
 (a)'s run on the (2, 1) mesh and ``launches_mesh_*`` the other runs of
 phase 18 (``_cards``: over every card); each timed shape lists
@@ -314,8 +328,11 @@ runs; the entry of ``set_condition`` its launches on the default batched
 deep run and ``launches_<run>`` for the other CLI runs, from the program
 counters; the entry of ``shard_exchange`` its launches on the giant locus
 through [card] x 2 with programs, the barrier turns of that region's
-ascents, and ``launches_<leg>`` for the other giant legs), the card's name
-and power limit (nvidia-smi), and last the result line.
+ascents, and ``launches_<leg>`` for the other giant legs; the entry of
+``keep_best`` its launches on phase 20's batched run with programs (the
+enumeration waves), ``launches_<run>`` for the other CLI runs, its times at
+1,024 configurations and under ``shapes`` at 4), the card's name and power
+limit (nvidia-smi), and last the result line.
 """
 
 from __future__ import annotations
@@ -1135,6 +1152,70 @@ def _set_condition(dev) -> dict:
     return dict(SET_CONDITION)
 
 
+# configurations a chunk of the transcriptome's enumeration programs holds
+KEEP_BEST_SIZES = (4, 8, 16, 32, 64, 128, 256, 512, 1024)
+KEEP_BEST: dict = {}
+
+
+def _keep_best(dev) -> dict:
+    """The keep-best kernel against its plain version, bit for bit, on the
+    objectives of C configurations (KEEP_BEST_SIZES; ties inside, at and
+    just above TIE_TOL): whole from no running best, and cut into chunks
+    of C/4 (at least 1) that chain the running best through ``prev`` as a
+    region's chunk programs do; then the device time of a launch (warm)
+    at 4 and 1,024 beside the plain version's host time and the bound,
+    (8 C + 32) bytes (the objectives and the running best read once, best
+    and index written) / 3.35 TB/s."""
+    from longcallr_tpu_torch.phasing import cuda_keep_best as KB
+    from longcallr_tpu_torch.phasing.kernels import TIE_TOL
+
+    rng = np.random.default_rng(20261019)
+    f64 = torch.float64
+    checked = []
+    for C in KEEP_BEST_SIZES:
+        base = np.round(rng.normal(-40.0, 3.0, C), 1)
+        at = rng.integers(0, C, max(1, C // 3))
+        base[at] += rng.choice([0.0, TIE_TOL / 2, TIE_TOL, TIE_TOL * 1.0001],
+                               at.size)
+        host = torch.tensor(base, dtype=f64)
+        step = max(1, C // 4)
+        for cut in (C, step):
+            prev_h = torch.tensor(-np.inf, dtype=f64)
+            prev_d = prev_h.to(dev)
+            for c0 in range(0, C, cut):
+                want = KB.keep_best_plain(host[c0:c0 + cut], prev_h, TIE_TOL)
+                got = KB.keep_best(host[c0:c0 + cut].to(dev), prev_d,
+                                   TIE_TOL)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0].cpu(), want[0])
+                        and torch.equal(got[1].cpu(), want[1])):
+                    raise AssertionError(
+                        f"keep_best C={C}, chunks of {cut}, at {c0}: kernel "
+                        f"{got[0].item(), got[1].item()}, plain "
+                        f"{want[0].item(), want[1].item()}")
+                prev_h, prev_d = want[0], got[0]
+        checked.append(C)
+    timed = {}
+    for C in (KEEP_BEST_SIZES[0], KEEP_BEST_SIZES[-1]):
+        host = torch.tensor(np.round(rng.normal(-40.0, 3.0, C), 1),
+                            dtype=f64)
+        prev = torch.tensor(-np.inf, dtype=f64)
+        p, v = host.to(dev), prev.to(dev)
+        out = (torch.empty((), dtype=f64, device=dev),
+               torch.empty((), dtype=torch.int64, device=dev))
+        t0 = time.perf_counter()
+        for _ in range(50):
+            KB.keep_best_plain(host, prev, TIE_TOL)
+        timed[C] = {
+            "ms": _device_ms(lambda: KB.keep_best(p, v, TIE_TOL, out=out)),
+            "plain_ms": (time.perf_counter() - t0) * 1e3 / 50,
+            "bound_ms": (8 * C + 32) / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "bound_bytes": 8 * C + 32}
+    KEEP_BEST.update(bit_equal=True, max_abs_err=0.0, checked_C=checked,
+                     timed=timed)
+    return dict(KEEP_BEST)
+
+
 def phase_kernels(card: str, dev):
     """Kernel vs plain at the listed shapes, the σ and alignment cases of
     matvec_cols, the threaded calls, and the timings at the two main-path
@@ -1201,6 +1282,7 @@ def phase_kernels(card: str, dev):
     many["max_abs_err"] = _draws_equal("65,536 keys", _draw_keys(
         65536).to(dev), 2, 8, 16)
     stats["set_condition"] = _set_condition(dev)
+    stats["keep_best"] = _keep_best(dev)
 
     # matvec_cols: σ patterns and the scalar path at the deep size
     kern, plain = kerns["matvec_cols"]
@@ -1250,7 +1332,8 @@ def phase_kernels(card: str, dev):
     KERNEL_STATS.update(stats)
     _emit("kernels", card, rel_tol=REL_TOL, device_ms_by=DEVICE_TIMER["by"],
           shapes=rows, cols_cases=cases, threaded=threaded, draws=draws,
-          draws_65536_keys=many, set_condition=stats["set_condition"])
+          draws_65536_keys=many, set_condition=stats["set_condition"],
+          keep_best=stats["keep_best"])
     return stats
 
 
@@ -1357,7 +1440,8 @@ def _payloads(prefix: str):
 def _census(stage: dict) -> dict:
     keys = ("phase_buckets", "phase_enum_buckets", "phase_single_regions",
             "phase_fused_refused", "phase_blockflip_exact",
-            "phase_safety_recompute")
+            "phase_safety_recompute", "phase_enum_wave_syncs",
+            "phase_enum_wave_regions")
     return {k: int(stage.get(k, 0)) for k in keys}
 
 
@@ -1428,6 +1512,7 @@ def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
     from longcallr_tpu_torch import cli
     from longcallr_tpu_torch.phasing import cuda_kernels as CK
     from longcallr_tpu_torch.phasing import graphs as G
+    from longcallr_tpu_torch.phasing.cuda_keep_best import KEEP_BEST_LAUNCHES
 
     prefix = os.path.join(tmp, label)
     argv = ["-b", bam, "-f", fa, "-o", prefix, "-p", "hifi-masseq",
@@ -1442,7 +1527,8 @@ def _cli_run(tmp: str, label: str, bam: str, fa: str, extra=(), env=None):
         PROGRAM_RUNS[label] = {
             **CK.GRAPHS, "distinct_shapes": len({b["key"] for b in G.BUILDS}),
             "cached_after_run": G.cached(),
-            "graph_launches": dict(CK.GRAPH_LAUNCHES)}
+            "graph_launches": dict(CK.GRAPH_LAUNCHES),
+            "keep_best": KEEP_BEST_LAUNCHES["keep_best"]}
         _draws_read(label)
     if rc != 0:
         raise AssertionError(f"{label}: cli.main returned {rc}")
@@ -1462,7 +1548,8 @@ def _no_flag_reads(label: str, programs: dict, placed: dict) -> None:
 
 
 def _program_off_leg(tmp: str, label: str, bam: str, fa: str, extra, env,
-                     on, reference: str, check_at=None) -> dict:
+                     on, reference: str, check_at=None,
+                     kernels: bool = True) -> dict:
     """The run ``label`` of _cli_run (``on``: its prefix, launches and
     launch shapes) once more with the device programs off: the same
     bytes, tags, launch census and draws, held to the JAX package's
@@ -1470,7 +1557,8 @@ def _program_off_leg(tmp: str, label: str, bam: str, fa: str, extra, env,
     equal the set-condition launches the programs made in the run with
     them (PROGRAM_RUNS[label]). That run must have built one program per
     distinct shape, freed them all at its end and launched both kernels
-    through them. Returns the off run's numbers."""
+    through them (``kernels``; else neither: a float64 run). Returns the
+    off run's numbers."""
     from longcallr_tpu_torch.phasing import graphs as G
 
     G.ENABLED = False
@@ -1490,7 +1578,8 @@ def _program_off_leg(tmp: str, label: str, bam: str, fa: str, extra, env,
             a["launches"] or a["builds"] or not b["condition_sets"] or \
             a["flag_reads"] != b["condition_sets"] or \
             b["builds"] != b["distinct_shapes"] or b["cached_after_run"] or \
-            not all(b["graph_launches"][n] > 0 for n in KERNEL_NAMES):
+            any((b["graph_launches"][n] > 0) != kernels
+                for n in KERNEL_NAMES):
         raise AssertionError(f"{label}: programs off {a}, launches "
                              f"{launches}; on {b}, launches {on[1]}")
     return {"wall_seconds": wall,
@@ -1573,10 +1662,16 @@ def _enum_workload(tmp: str, tag: str, label: str):
     caller resolves the mode and in forced split mode (where no region is
     recomputed in f64, so the bytes are those of the kernels'
     members-per-table form). All four must write the same bytes, the JAX
-    package's digests of ``label``, at least one enumeration bucket must
-    form, and both kernels must be launched, at shapes that phase_kernels
-    checked. Returns (the result for the phase line, [(launches, launch
-    shapes) batched, the same per region])."""
+    package's digests of ``label``. As the caller resolves the mode every
+    enumeration problem runs in float64 on the card: the batched run phases
+    each wave's regions as one stream of programs with one host read
+    (phasing/enum_wave.py: ``phase_enum_wave_syncs`` >= 1, every phased
+    region in a wave, the keep-best kernel launched) and neither run
+    launches a matvec kernel. In forced split mode at least one
+    enumeration bucket must form and both kernels must be launched, at
+    shapes that phase_kernels checked. Returns (the result for the phase
+    line, [(launches, launch shapes) of the forced split runs, batched,
+    then per region])."""
     ebam, efa, eparams = _enum_input(tmp, label)
     np_, nout, nlaunch, nwall = _cli_run(tmp, f"{label}_batched", ebam, efa)
     nshapes = _launched_shapes(f"{tag} enumeration workload, batched")
@@ -1584,23 +1679,29 @@ def _enum_workload(tmp: str, tag: str, label: str):
                                             efa, extra=["--no-batched"])
     nshapes2 = _launched_shapes(f"{tag} enumeration workload, per-region loop")
     ncensus = _census(nout.stage_seconds)
-    if ncensus["phase_enum_buckets"] < 1:
-        raise AssertionError(f"{tag} no enumeration bucket: {ncensus}")
+    phased = ncensus["phase_enum_wave_regions"]
+    if ncensus["phase_enum_wave_syncs"] < 1 or phased < 1 \
+            or ncensus["phase_enum_buckets"] \
+            or PROGRAM_RUNS[f"{label}_batched"]["keep_best"] <= 0:
+        raise AssertionError(f"{tag} the batched run made no enumeration "
+                             f"wave: {ncensus}, "
+                             f"{PROGRAM_RUNS[f'{label}_batched']}")
     for name in KERNEL_NAMES:
-        if nlaunch[name] <= 0 or nlaunch2[name] <= 0:
-            raise AssertionError(f"{tag} kernel {name} was not launched")
+        if nlaunch[name] or nlaunch2[name]:
+            raise AssertionError(f"{tag} kernel {name} was launched in "
+                                 f"float64 mode")
     _must_equal(f"{tag} enumeration workload, batched vs --no-batched",
                 _payloads(np_), _payloads(np2))
     reference = _hold_to_reference(f"{tag} enumeration workload", label, np_)
     off = _program_off_leg(tmp, f"{label}_batched", ebam, efa, (), None,
-                           (np_, nlaunch, nshapes), label)
+                           (np_, nlaunch, nshapes), label, kernels=False)
     with _forced_split():
         sp, sout, slaunch, _ = _cli_run(tmp, f"{label}_batched_split", ebam,
                                         efa)
         sshapes = _launched_shapes(f"{tag} forced split, batched")
         sp2, sout2, slaunch2, _ = _cli_run(tmp, f"{label}_per_region_split",
                                            ebam, efa, extra=["--no-batched"])
-        _launched_shapes(f"{tag} forced split, per-region loop")
+        sshapes2 = _launched_shapes(f"{tag} forced split, per-region loop")
     scensus = _census(sout.stage_seconds)
     if (scensus["phase_enum_buckets"] < 1 or scensus["phase_safety_recompute"]
             or sout.n_f64_reruns or sout2.n_f64_reruns):
@@ -1617,12 +1718,10 @@ def _enum_workload(tmp: str, tag: str, label: str):
         "records": nout.n_records, "equal": True, "census": ncensus,
         "reference": reference,
         "batched": {"wall_seconds": nwall, "launches": nlaunch,
-                    "launch_shapes": nshapes,
                     "region_phase": nout.stage_seconds.get("region_phase"),
                     "programs": PROGRAM_RUNS[f"{label}_batched"]},
         "batched_program_off": off,
         "per_region": {"wall_seconds": nwall2, "launches": nlaunch2,
-                       "launch_shapes": nshapes2,
                        "region_phase":
                            nout2.stage_seconds.get("region_phase")},
         "forced_split": {"equal": True, "census": scensus,
@@ -1631,7 +1730,7 @@ def _enum_workload(tmp: str, tag: str, label: str):
                          "f64_reruns": sout.n_f64_reruns,
                          "equal_to_default_mode":
                              _payloads(sp) == _payloads(np_)}}
-    return res, [(nlaunch, nshapes), (nlaunch2, nshapes2)]
+    return res, [(slaunch, sshapes), (slaunch2, sshapes2)]
 
 
 def _phase_times(wall: float, out) -> dict:
@@ -1812,15 +1911,17 @@ def phase_batched(card: str, tmp: str, bam: str, fa: str, per_region_out,
     for shape in (ENUM6_BUCKET, ENUM10_BUCKET):
         if list(_launch_key(shape)) not in enum_deep_runs[0][1][
                 "dual_matvec_rows"]:
-            raise AssertionError(f"(i) the batched run did not launch at "
-                                 f"{_launch_key(shape)}")
+            raise AssertionError(f"(i) the batched forced split run did not "
+                                 f"launch at {_launch_key(shape)}")
     notes["i"] = {k: res["i_enum_deep"]["batched"][k]
                   for k in ("wall_seconds", "region_phase")}
     _emit("batched", card, **res)
+    # the enumeration workloads launch the kernels in forced split mode
     return {"batched": (launches, shapes),
-            "one_wave": (flaunch, fshapes), "enum": enum_runs[0],
-            "enum_per_region": enum_runs[1], "enum_deep": enum_deep_runs[0],
-            "enum_deep_per_region": enum_deep_runs[1]}
+            "one_wave": (flaunch, fshapes), "enum_split": enum_runs[0],
+            "enum_per_region_split": enum_runs[1],
+            "enum_deep_split": enum_deep_runs[0],
+            "enum_deep_per_region_split": enum_deep_runs[1]}
 
 
 # runs of the CLI in one fresh process (argv: a JSON list of [label, CLI
@@ -2112,17 +2213,15 @@ def phase_placement(card: str, dev, tmp: str) -> None:
         enum[name] = {"placed": _placed(out), "launches": launches,
                       "wall_seconds": wall, "census": _census(out.stage_seconds),
                       "region_phase": out.stage_seconds.get("region_phase")}
-    # all-host: the enumeration workload's problems run in float64 on the
-    # card, which launches no hand kernel
-    if any(enum["all_host"]["launches"].values()) \
-            or enum["all_host"]["placed"]["card"] \
-            or enum["all_host"]["placed"]["host"] \
-            or not enum["all_host"]["placed"]["card_f64"]:
-        raise AssertionError(f"all-host launched a kernel or left the "
-                             f"float64 route: {enum['all_host']}")
-    if not all(enum["off"]["launches"].values()) \
-            or enum["off"]["placed"]["host"]:
-        raise AssertionError(f"router off left the card: {enum['off']}")
+    # whatever the threshold, the enumeration workload's problems run in
+    # float64 on the card, which launches no matvec kernel
+    for name, _ in settings:
+        if any(enum[name]["launches"].values()) \
+                or enum[name]["placed"]["card"] \
+                or enum[name]["placed"]["host"] \
+                or not enum[name]["placed"]["card_f64"]:
+            raise AssertionError(f"router {name} launched a kernel or left "
+                                 f"the float64 route: {enum[name]}")
 
     golden = []
     for gname in goldens.GOLDEN_NAMES:
@@ -3621,31 +3720,41 @@ def _hold_to_reference(what: str, label: str, prefix: str) -> dict:
 
 @contextlib.contextmanager
 def _counting_programs():
-    """Counts the phase programs called inside (graphs.run, any thread) by
-    kind; an ascent whose state has a members' axis (the enumeration
-    configs) counts as "ascent_members"."""
+    """Counts the phase programs called inside (graphs.run and the
+    enumeration waves' graphs.Launches.run, any thread) by kind; an ascent
+    whose state has a members' axis (the enumeration configs) counts as
+    "ascent_members"."""
     from longcallr_tpu_torch.phasing import graphs as G
 
-    calls, lock, real = {}, threading.Lock(), G.run
+    calls, lock = {}, threading.Lock()
+    real, real_wave = G.run, G.Launches.run
 
-    def run(kind, device, make, values, capture=True):
+    def count(kind, values):
         name = kind[0]
         if name == "ascent" and \
                 values["sigma"].dim() - 1 > values["cell_p"].dim() - 2:
             name = "ascent_members"
         with lock:
             calls[name] = calls.get(name, 0) + 1
+
+    def run(kind, device, make, values, capture=True):
+        count(kind, values)
         return real(kind, device, make, values, capture)
 
-    G.run = run
+    def wave_run(self, kind, make, values, *rest, **kw):
+        count(kind, values)
+        return real_wave(self, kind, make, values, *rest, **kw)
+
+    G.run, G.Launches.run = run, wave_run
     try:
         yield calls
     finally:
-        G.run = real
+        G.run, G.Launches.run = real, real_wave
 
 
 def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
-                   env=None, reference=None, check_at=None) -> dict:
+                   env=None, reference=None, check_at=None,
+                   kernels: bool = True) -> dict:
     """One input through the CLI's main() with the device program off, then
     on: VCF bytes, phased-BAM payload and sorted HP/PS tags equal (and
     equal to the JAX package's digests of ``reference``), the launch census
@@ -3653,7 +3762,8 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
     host flag read, as many set-condition launches (the device's count) as
     the program-off run's host flag reads, one build per distinct shape,
     and both kernels
-    launched through the programs' runs; the peak of allocated device
+    launched through the programs' runs (``kernels``; else neither: a
+    float64 run); the peak of allocated device
     memory of each run above what was allocated before it, the programs
     called by kind and the launches at each shape. ``check_at``: a card on
     which launch shapes that phase_kernels did not check are checked after
@@ -3710,8 +3820,8 @@ def _graphs_cli_ab(tmp: str, label: str, bam: str, fa: str, extra=(),
             or pb["condition_sets"] != pa["flag_reads"] \
             or pb["builds"] != pb["distinct_shapes"] \
             or b["programs_cached_after_run"] or not pb["body_runs"] \
-            or not all(b["graph_launches"][n] > 0 and b["launches"][n] > 0
-                       for n in KERNEL_NAMES):
+            or any((b["graph_launches"][n] > 0 and b["launches"][n] > 0)
+                   != kernels for n in KERNEL_NAMES):
         raise AssertionError(f"graphs {label}: programs off {pa}, on {pb}, "
                              f"kernels in programs {b['graph_launches']}")
     res = {("program_on" if on else "program_off"):
@@ -3836,30 +3946,36 @@ def phase_transcriptome(card: str, dev, tmp: str) -> dict:
     """The transcriptome-scale enumeration input (goldens.ENUM_INPUTS:
     320 loci of 1 to 10 SNPs, 62,028 reads) through the CLI with 8
     threads, batched and --no-batched, each with the device programs off
-    and on (``_graphs_cli_ab``), every phase problem on the card: bytes
-    equal across the four legs and equal to the JAX package's digests, no
-    host flag read with
-    the programs on, set-condition launches equal to the flag reads off,
-    one build per distinct shape; each kernel held against its plain
-    version at every launch shape the runs made; the three shapes each
-    kernel launched at most must be TX_CHUNK, TX_REGION and TX_SMALL,
-    which phase kernels timed beside their bound. The census:
-    regions, the share that took the enumeration path (enumeration
-    ascents against perturbation schedules on the per-region loop),
-    enumeration buckets, regions phased alone and distinct shapes.
-    Returns (launch counts, launch shapes) by run."""
+    and on (``_graphs_cli_ab``), every phase problem in float64 on the
+    card: bytes equal across the four legs and equal to the JAX package's
+    digests, no host flag read with the programs on, set-condition
+    launches equal to the flag reads off, one build per distinct shape, no
+    matvec kernel launched; the batched legs phase every wave's
+    enumeration regions as one stream (``phase_enum_wave_syncs`` the
+    waves, with programs on, of kind "enum"). Then both legs in forced
+    split mode (their bytes beside the float64 legs'), each kernel held
+    against its plain version at every launch shape the runs made; the three shapes each kernel
+    launched at most must be TX_CHUNK, TX_REGION and TX_SMALL, which phase
+    kernels timed beside their bound. The census: regions, the share that
+    took the enumeration path (enumeration ascents against perturbation
+    schedules on the per-region loop), waves, regions phased alone and
+    distinct shapes. Returns (launch counts, launch shapes) by forced
+    split run."""
+    from longcallr_tpu_torch.phasing import cuda_kernels as CK
+
     bam, fa, params = _enum_input(tmp, "transcriptome")
     res, runs = {"reads": params["n_reads"], "snps": params["n_snps"]}, {}
     with _router(0):
         for label, extra in (("batched", ()),
                              ("per_region", ("--no-batched",))):
-            res[label], runs[f"transcriptome_{label}"] = _graphs_cli_ab(
+            res[label], _ = _graphs_cli_ab(
                 tmp, f"transcriptome_{label}", bam, fa,
-                ("-t", "8") + extra, reference="transcriptome", check_at=dev)
+                ("-t", "8") + extra, reference="transcriptome", check_at=dev,
+                kernels=False)
     # the four legs write one VCF and one phased-BAM payload (off and on
     # were held equal within each leg)
-    _must_equal("transcriptome: batched vs --no-batched",
-                _payloads(os.path.join(tmp, "graphs_transcriptome_batched_on")),
+    on = os.path.join(tmp, "graphs_transcriptome_batched_on")
+    _must_equal("transcriptome: batched vs --no-batched", _payloads(on),
                 _payloads(os.path.join(tmp,
                                        "graphs_transcriptome_per_region_on")))
     res["equal_across_legs"] = True
@@ -3877,12 +3993,25 @@ def phase_transcriptome(card: str, dev, tmp: str) -> dict:
     if enum + iterative <= 0 or enum / (enum + iterative) < 0.8:
         raise AssertionError(f"transcriptome: {enum} enumeration regions of "
                              f"{enum + iterative}")
-    # the shapes each kernel launched at most, over both legs: those
-    # phase kernels timed
+    if census["phase_enum_wave_syncs"] < 1 \
+            or census["phase_enum_wave_regions"] < 1 \
+            or not res["batched"]["program_on"]["program_calls"].get("enum"):
+        raise AssertionError(f"transcriptome: the batched run made no "
+                             f"enumeration wave: {census}")
+    # forced split: the kernels at the shapes each launched most
     count = {}
-    for leg in ("batched", "per_region"):
-        for name, shape, n in res[leg]["program_on"]["launches_by_shape"]:
-            count[name, tuple(shape)] = count.get((name, tuple(shape)), 0) + n
+    with _router(0), _forced_split():
+        for label, extra in (("batched", ()),
+                             ("per_region", ("--no-batched",))):
+            name = f"transcriptome_{label}_split"
+            prefix, _, launches, wall = _cli_run(tmp, name, bam, fa,
+                                                 ("-t", "8") + extra)
+            runs[name] = (launches, _launched_shapes(name, check_at=dev))
+            res[f"{label}_split"] = {
+                "wall_seconds": wall, "launches": launches,
+                "equal_to_default_mode": _payloads(prefix) == _payloads(on)}
+            for (k, shape), n in CK.LAUNCHES_BY_SHAPE.items():
+                count[k, tuple(shape)] = count.get((k, tuple(shape)), 0) + n
     timed = {_launch_key(s) for s in (TX_CHUNK, TX_REGION, TX_SMALL)}
     res["most_launched"] = {}
     for name in KERNEL_NAMES:
@@ -4015,6 +4144,22 @@ def main() -> int:
          "bound_by": sc["bound_by"], "library_ms": None}
     k.update({f"launches_{run}": r["condition_sets"]
               for run, r in PROGRAM_RUNS.items() if run != "deep_batched"})
+    kernels.append(k)
+    # the keep-best that ends each enumeration program: its launches on the
+    # transcriptome's batched run with programs (its main path: the
+    # enumeration waves), its time at a chunk of 1,024 configurations
+    kb, main = stats["keep_best"], "graphs_transcriptome_batched_on"
+    k = {"name": "keep_best", "route": "cuda",
+         "source": "longcallr_tpu_torch/csrc/keep_best.cu",
+         "replaces": "longcallr_tpu/phasing/optimize.py:880-883",
+         "launches": PROGRAM_RUNS[main]["keep_best"],
+         "max_abs_err": kb["max_abs_err"], "ms_by": DEVICE_TIMER["by"],
+         "shape": [KEEP_BEST_SIZES[-1]], **kb["timed"][KEEP_BEST_SIZES[-1]],
+         "library_ms": None, "shapes": kb["timed"],
+         "checked_C": kb["checked_C"]}
+    k.update({f"launches_{run}": r["keep_best"]
+              for run, r in PROGRAM_RUNS.items()
+              if run != main and "keep_best" in r})
     kernels.append(k)
     # the exchange of the reads-sharded ascent: its launches on the giant
     # locus through [card] x 2 with programs (the barrier turns of the

@@ -78,15 +78,19 @@ def _metrics(p: dict, recs) -> dict:
         **{f"count.{k}": p["stage"].get(k, 0) for k in (
             "phase_host_placed", "phase_card_placed", "phase_card_f64_placed",
             "phase_enum_buckets", "phase_single_regions",
-            "phase_safety_recompute")},
+            "phase_safety_recompute", "phase_enum_wave_syncs",
+            "phase_enum_wave_regions")},
         "phase.single_region_s": HS.span_seconds(
             recs, ("phase.single_region",)),
         "phase.enum_bucket_s": HS.span_seconds(recs, ("phase.enum_bucket",)),
+        "phase.enum_wave_s": HS.span_seconds(recs, ("phase.enum_wave",)),
         "phase.keep_best_s": HS.span_seconds(recs, ("phase.keep_best",)),
         "phase.f64_rerun_s": HS.span_seconds(recs, ("phase.f64_rerun",)),
         "phase.f64_reruns": n("phase.f64_rerun"),
         "phase.wave_phase_s": HS.span_seconds(recs, ("caller.phase",),
                                               "phase"),
+        "phase.wave_phase_thread_cpu_s": HS.span_seconds(
+            recs, ("caller.phase",), "phase", cpu=True),
         "prep.prepare_s": HS.span_seconds(recs, ("caller.prepare",), "prep"),
         "programs.run_s": HS.span_seconds(recs, ("programs.run",)),
         "programs.lock_wait_s": HS.span_seconds(recs,

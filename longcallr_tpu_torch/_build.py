@@ -7,6 +7,11 @@ shared library with a plain C interface, under
 The library's file name carries a hash of the sources and flags, so an edit
 rebuilds and a stale library is never loaded. Nothing here runs at import
 time: the CPU-only test suite imports every module without ``nvcc``.
+
+``held()`` is the same library loaded so that a call keeps the interpreter
+lock: for the launches of an enumeration wave's device programs
+(``phasing/graphs.Launches``), which return at once and which a thread that
+gave the lock up for them would wait to get back behind the other threads.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_held: Optional[ctypes.PyDLL] = None
 
 
 def _nvcc() -> str:
@@ -70,6 +76,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sx_exchange.restype = i
     lib.sx_exchange.argtypes = [i, i, i, i, vp, vp, vp, i, vp, i, vp, vp,
                                 ctypes.c_longlong, vp]
+    lib.keep_best.restype = i
+    lib.keep_best.argtypes = [vp, ctypes.c_longlong, vp, ctypes.c_double, vp,
+                              vp, i, vp]
     lib.sx_enable_peers.restype = i
     lib.sx_enable_peers.argtypes = [i, i]
     lib.graph_kernel_nodes.restype = i
@@ -136,3 +145,17 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
         return lib
+
+
+def held() -> ctypes.PyDLL:
+    """``load()``'s library, its calls made without giving up the
+    interpreter lock (the package calls only ``gp_launch`` through it, from
+    ``graphs.Program.enqueue``)."""
+    global _held
+    lib = load()
+    with _lock:
+        if _held is None:
+            h = ctypes.PyDLL(lib._name)
+            _declare(h)
+            _held = h
+        return _held

@@ -15,10 +15,14 @@ order with its NaN polarity, the enumeration keep-best, the safety net and
 the stage counters (beside them a census: ``phase_buckets``,
 ``phase_enum_buckets`` and ``phase_single_regions`` count the iterative
 buckets, the enumeration buckets and the regions phased alone), and the
-placement by work: one router call per bucket
-(``utils/device.phase_placement``), and a bucket of little work on a card
-run goes member by member through the per-region path, in float64 on the
-card for an enumeration bucket and on the host for an iterative one.
+placement by work: one router call per bucket and per enumeration region
+phased alone (``utils/device.phase_placement``). A card run's enumeration
+problems, placed in float64 at every size, are phased together after the
+router calls: the wave's regions as one stream of per-region float64
+programs with one host sync (``enum_wave``; in forced split mode a problem
+of little work goes member by member through the per-region path). An
+iterative bucket of little work goes member by member through the
+per-region path on the host.
 
 With ``mesh=`` (``parallel/mesh.make_mesh``) every bucket is cut along the
 mesh's "regions" axis, once, and its rows run the bucket programs at the
@@ -49,6 +53,7 @@ from ..utils.spans import span, stage_add
 from . import kernels_fast as KF
 from . import optimize as O
 from . import rng as R
+from .enum_wave import phase_enum_wave
 from .fragments import FragmentMatrix
 from .kernels import TIE_TOL, make_cell_tables_np
 from .optimize import (PhaseState, _bucket, block_flip_pass, compute_ld_blocks,
@@ -104,6 +109,12 @@ def phase_regions_batched(items: List[Tuple[FragmentMatrix, CandidateSet, int, b
     None."""
     device = resolve_device() if device is None else torch.device(device)
     out: List[Optional[PhaseState]] = [None] * len(items)
+    # a card run's enumeration problems that the router places in float64
+    # (all but under forced split mode) gather here, regions phased alone
+    # and bucket members alike, and phase as one stream of programs with
+    # one host sync (enum_wave)
+    wave: Optional[List[_Prepared]] = (
+        [] if mesh is None and device.type == "cuda" else None)
     buckets: Dict[Tuple[int, int], List[_Prepared]] = {}
     enum_buckets: Dict[Tuple[int, int], List[_Prepared]] = {}
     for idx, (frags, cands, seed, apply_ds) in enumerate(items):
@@ -133,11 +144,17 @@ def phase_regions_batched(items: List[Tuple[FragmentMatrix, CandidateSet, int, b
             it = group[0]
             stage_add("phase_single_regions", 1)
             with span("phase.single_region"):
-                out[it.index] = phase_region(it.frags, it.cands, cfg, it.seed,
-                                             it.apply_ds, device=device)
+                _phase_single_enum(it, cfg, K, I0, device, out, wave)
         else:
             with span("phase.enum_bucket"):
-                _phase_enum_bucket(group, cfg, K, I0, device, out, mesh)
+                _phase_enum_bucket(group, cfg, K, I0, device, out, mesh, wave)
+    if wave:
+        with span("phase.enum_wave"):
+            states = phase_enum_wave([(it.frags, it.cands, it.seed,
+                                       it.apply_ds) for it in wave], cfg,
+                                     device)
+        for it, st in zip(wave, states):
+            out[it.index] = st
     for (K, I_pad), group in sorted(buckets.items()):
         with span("phase.bucket"):
             _phase_bucket(group, cfg, K, I_pad, device, out, mesh)
@@ -203,15 +220,21 @@ def _safety_net(split: bool) -> bool:
 
 def _placed_per_region(group: List[_Prepared], cfg: CallerConfig,
                         work: int, enumeration: bool, device: torch.device,
-                        out: List[Optional[PhaseState]]) -> bool:
-    """The bucket's one router call. A bucket of little work on a card run
-    is phased here, member by member on the per-region path (byte-equal by
-    the batched == per-region seed contract, and without a bucket program's
-    launches): an enumeration bucket in float64 on the card, an iterative
-    one on the host. Returns whether it was."""
+                        out: List[Optional[PhaseState]],
+                        wave: Optional[List[_Prepared]] = None) -> bool:
+    """The problem's one router call (a bucket, or an enumeration region
+    phased alone). A problem the router places in float64 on the card goes
+    onto ``wave`` where there is one (a card run without a mesh); else it is
+    phased here member by member on the per-region path (byte-equal by the
+    batched == per-region seed contract, and without a bucket program's
+    launches): in float64 on the card, or on the host (an iterative bucket
+    of little work). Returns whether it was taken."""
     placed = phase_placement(work, device, enumeration)
     if placed == Placement(device):
         return False
+    if wave is not None and placed.f64 and not O.placed_split(placed):
+        wave.extend(group)
+        return True
     with span("phase.card_f64_placed" if placed.f64
               else "phase.host_placed"):
         for it in group:
@@ -222,9 +245,27 @@ def _placed_per_region(group: List[_Prepared], cfg: CallerConfig,
     return True
 
 
+def _phase_single_enum(it: _Prepared, cfg: CallerConfig, K: int, I0: int,
+                       device: torch.device, out: List[Optional[PhaseState]],
+                       wave: Optional[List[_Prepared]]) -> None:
+    """An enumeration region phased alone: ``phase_region`` (its router
+    call), or where there is a wave the same router call and, placed in
+    float64, the wave."""
+    if wave is None:
+        out[it.index] = phase_region(it.frags, it.cands, cfg, it.seed,
+                                     it.apply_ds, device=device)
+        return
+    work = O.phase_work(K, _bucket(max(1, I0)), I0, True)
+    if not _placed_per_region([it], cfg, work, True, device, out, wave):
+        out[it.index] = O.phase_region_on(it.frags, it.cands, cfg, it.seed,
+                                          it.apply_ds, device,
+                                          O.split_mode(device))
+
+
 def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
                        I0: int, device: torch.device,
-                       out: List[Optional[PhaseState]], mesh=None) -> None:
+                       out: List[Optional[PhaseState]], mesh=None,
+                       wave: Optional[List[_Prepared]] = None) -> None:
     """Batched 2^I enumeration (phase.rs:1097-1122) for regions sharing the
     same config matrix; chunked over configs to bound memory."""
     I_pad = _bucket(max(1, I0))
@@ -232,12 +273,12 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
     if len(group) > bmax:
         for i in range(0, len(group), bmax):
             _phase_enum_bucket(group[i:i + bmax], cfg, K, I0, device, out,
-                               mesh)
+                               mesh, wave)
         return
     B = len(group)
     C_est = enumeration_order(I0).shape[0]
     if mesh is None and _placed_per_region(group, cfg, B * C_est * K * I_pad,
-                                           True, device, out):
+                                           True, device, out, wave):
         return
     stage_add("phase_enum_buckets", 1)
     p, bq, read_base, site_mask = _fill_cells(group, K, I_pad)
@@ -260,8 +301,7 @@ def _phase_enum_bucket(group: List[_Prepared], cfg: CallerConfig, K: int,
     # program builds one table per region for all its configs
     eta0_d = dp(eta0)
 
-    chunk = max(1, int(2 ** 24 // max(1, B * K * I_pad)))
-    chunk = min(C, 1 << (chunk.bit_length() - 1))
+    chunk = O.enum_chunk(C, B * K * I_pad)
     best_prob = np.full(B, -np.inf)
     best: List[Optional[tuple]] = [None] * B
     best_idx = np.full(B, -1)

@@ -216,6 +216,7 @@ COLS_WALK_DIRECT_STATIC = 8 * (2 * COLS_WALK_THREADS
 def reset_launches() -> None:
     from .cuda_draws import reset_draw_launches
     from .cuda_exchange import reset_exchange_launches
+    from .cuda_keep_best import reset_keep_best_launches
 
     with _count_lock:
         for k in LAUNCHES:
@@ -230,6 +231,7 @@ def reset_launches() -> None:
             GRAPH_LAUNCHES[k] = 0
     reset_draw_launches()
     reset_exchange_launches()
+    reset_keep_best_launches()
 
 
 def set_launch_row(row: Optional[int]) -> None:
@@ -252,16 +254,21 @@ def _count(name: str, hi: torch.Tensor, g: int, device_index: int) -> None:
 
 def _add(launches, n: int = 1) -> None:
     """Count ``launches`` ((name, shape, device index) each; the round
-    draws' go to ``cuda_draws``, the shard exchange's to ``cuda_exchange``)
-    ``n`` times for this thread's row."""
+    draws' go to ``cuda_draws``, the shard exchange's to ``cuda_exchange``,
+    the keep-best's to ``cuda_keep_best``) ``n`` times for this thread's
+    row."""
     from .cuda_draws import add_draw_launches
     from .cuda_exchange import add_exchange_launches
+    from .cuda_keep_best import add_keep_best_launches
 
     row = getattr(_launch_row, "index", None)
     with _count_lock:
         for name, shape, device_index in launches:
             if name == "shard_exchange":
                 add_exchange_launches(n)
+                continue
+            if name == "keep_best":
+                add_keep_best_launches(n)
                 continue
             if name not in LAUNCHES:
                 add_draw_launches(shape, n)

@@ -34,7 +34,8 @@ A shape has one cached program, which serves one call at a time: threads
 (the rows of a regions mesh, the per-region loop's workers) that run one
 shape at once take turns on its lock, as they would on the card's. A card
 captures, instantiates, runs and destroys one program at a time (one lock
-per card, held from a launch to its sync): with CUPTI attached (after a
+per card, held from a launch to its sync; a ``Launches`` holds it for each
+of its launches and for its one sync): with CUPTI attached (after a
 torch.profiler session), threads that instantiated, began a capture and
 waited on a launch at once on one card hung in the driver. Each program
 keeps its pieces' graphs (they own the memory pool), its cols workspaces
@@ -183,23 +184,51 @@ class Program:
         self.counters = torch.zeros(len(self.loops) + 1, dtype=torch.int64,
                                     device=self.device)
         self.flag_reads = 0
+        # (id(buffer), zeros) → its one-dimensional view, or zeros (_flat)
+        self._views: Dict[tuple, torch.Tensor] = {}
 
     # -- inputs ---------------------------------------------------------------
 
-    def load(self, values: Dict[str, object]) -> None:
-        """Copy each input's value into its buffer: a tensor on the
-        program's device directly, host data through pinned memory, both
-        without a host sync."""
+    def load(self, values: Dict[str, object], zero: bool = False) -> None:
+        """Copy each input's value into its buffer: the tensors on the
+        program's device directly, in one call, host data through pinned
+        memory, both without a host sync. A value of the buffer's size in
+        one dimension fills it in order, one of fewer elements broadcasts
+        over it. ``zero``: the counters are zeroed in the same call."""
+        bufs, srcs = [], []
         for name, buf in self.inputs.items():
             v = values[name]
             if not isinstance(v, torch.Tensor):
                 v = torch.as_tensor(v)
-            if v.device != buf.device and v.device.type == "cpu" \
-                    and buf.device.type == "cuda":
+            if v.device == buf.device:
+                if v.shape != buf.shape and v.numel() == buf.numel():
+                    if v.dim() == 1:
+                        buf = self._flat(buf)
+                    else:
+                        v = v.reshape(buf.shape)
+                bufs.append(buf)
+                srcs.append(v)
+            elif v.device.type == "cpu" and buf.device.type == "cuda":
                 v = v.to(buf.dtype).pin_memory()
                 buf.copy_(v.reshape(buf.shape), non_blocking=True)
             else:
                 buf.copy_(v.reshape(buf.shape))
+        if zero:
+            bufs.append(self.counters)
+            srcs.append(self._flat(self.counters, zeros=True))
+        if bufs:
+            torch._foreach_copy_(bufs, srcs)
+
+    def _flat(self, t: torch.Tensor, zeros: bool = False) -> torch.Tensor:
+        """A one-dimensional view of the program's contiguous buffer ``t``
+        (``zeros``: a tensor of zeros of its size and type instead), made
+        once."""
+        key = (id(t), zeros)
+        if key not in self._views:
+            self._views[key] = (torch.zeros(t.numel(), dtype=t.dtype,
+                                            device=t.device) if zeros
+                                else t.view(-1))
+        return self._views[key]
 
     # -- the plain executor ---------------------------------------------------
 
@@ -373,21 +402,29 @@ class Program:
         CK.count_graphs(launches=1, body_runs=sum(runs),
                         condition_sets=sets)
 
+    def _launch(self, keep_gil: bool = False) -> None:
+        """Launch on the current stream (the caller holds the card's lock).
+        ``keep_gil``: keep the interpreter lock through the call
+        (``enqueue``'s launches: an enumeration wave's, which were measured
+        to return at once); else it is given up, as for any call that can
+        block (a full launch queue, a profiler attached)."""
+        from .._build import held, load
+
+        lib = held() if keep_gil else load()
+        _raise("launch", lib.gp_launch(self._exec, self.device.index,
+                                       CK._stream(self.device)))
+
     def _execute(self) -> Tuple[tuple, List[int], int]:
         """One launch on the current stream and one host sync: (copies of
         the outputs, the body runs of each loop, the set-condition
         launches)."""
-        from .._build import load
-
-        dev = self.device
-        lock = _card_lock(dev)
+        lock = _card_lock(self.device)
         with span("programs.run", key="run_seconds", add=_add_graphs):
             with span("programs.lock_wait"):
                 lock.acquire()
             try:
                 self.counters.zero_()
-                _raise("launch", load().gp_launch(self._exec, dev.index,
-                                                  CK._stream(dev)))
+                self._launch()
                 outs = tuple(o.clone() for o in self.outputs)
                 counts = self.counters.to("cpu", non_blocking=True)
                 done = torch.cuda.Event()
@@ -397,6 +434,30 @@ class Program:
                 lock.release()
         counts = counts.tolist()
         return outs, counts[:-1], counts[-1]
+
+    def enqueue(self, into: List[torch.Tensor]) -> None:
+        """One launch on the current stream with no host sync (the counters
+        zeroed by the load before it): the outputs, each as one dimension,
+        then the counters are copied into ``into``, in one call queued
+        behind the launch. The card's lock is held for the launch and the
+        copies alone; the caller syncs, then checks the counters with
+        ``account``."""
+        srcs = [self._flat(o) for o in self.outputs] + [self.counters]
+        lock = _card_lock(self.device)
+        with span("programs.run", key="run_seconds", add=_add_graphs):
+            with span("programs.lock_wait"):
+                lock.acquire()
+            try:
+                self._launch(keep_gil=True)
+                torch._foreach_copy_(into, srcs)
+            finally:
+                lock.release()
+
+    def account(self, counts: List[int]) -> None:
+        """``launch``'s check and count, for an ``enqueue``'d launch whose
+        counters (``counts``: the body runs of each loop, then the
+        set-condition launches) have reached the host."""
+        self._account(counts[:-1], counts[-1])
 
     def free(self) -> None:
         """Destroy the instantiated program and drop what it holds (a
@@ -685,6 +746,9 @@ class _Slot:
         self.prog: Optional[Program] = None
         self.held = 0
         self.used = 0
+        # launches of the program not yet synced (``Launches``): it is not
+        # freed while any is in flight
+        self.pending = 0
 
     def free(self) -> int:
         """Free the program (the caller holds ``lock``); 1 if there was
@@ -755,18 +819,32 @@ def run(kind: tuple, device, make: Callable[[], object],
         prog.load(values)
         prog.run_plain()
         return prog.outputs
-    key = _key_of(kind, devices, values)
+    with _held(_key_of(kind, devices, values), devices, make,
+               values) as (slot, _):
+        out = slot.prog.launch()[0]
+    _trim(slot)
+    return out
+
+
+@contextlib.contextmanager
+def _held(key: tuple, devices: List[torch.device], make, values,
+          zero: bool = False):
+    """(The cache's slot of ``key``, its lock held, its program built (by
+    ``make``, at the first call of the key) and loaded with ``values``
+    (``zero``: its counters zeroed too, ``Program.load``); whether it was
+    built now)."""
     while True:
         with _cache_lock:
-            slot = _CACHE.setdefault(key, _Slot(device))
+            slot = _CACHE.setdefault(key, _Slot(devices[0]))
         with slot.lock:
             with _cache_lock:
                 if _CACHE.get(key) is not slot:
                     continue        # freed while this call waited
-            if slot.prog is None:
+            built = slot.prog is None
+            if built:
                 before = _allocated(devices)
                 prog = make()
-                prog.load(values)
+                _load(prog, values, zero)
                 took = prog.build()
                 slot.prog = prog
                 slot.held = max(0, _allocated(devices) - before)
@@ -775,11 +853,134 @@ def run(kind: tuple, device, make: Callable[[], object],
                     BUILDS.append({"key": repr(key), "bytes_held": slot.held,
                                    **took})
             else:
-                slot.prog.load(values)
+                _load(slot.prog, values, zero)
             slot.used = next(_clock)
-            out = slot.prog.launch()[0]
-        _trim(slot)
-        return out
+            yield slot, built
+            return
+
+
+def _load(prog, values, zero: bool) -> None:
+    """``prog.load(values)``, with its counters zeroed in the same call
+    where ``zero`` (a ``Program`` of ``Launches``; a ``Group``'s load takes
+    no such argument)."""
+    if zero:
+        prog.load(values, zero=True)
+    else:
+        prog.load(values)
+
+
+class Launches:
+    """Device programs launched one after another on one card with one
+    host sync for all of them: the counterpart, for many small programs, of
+    the JAX package's dispatch of compiled programs without a read between
+    them. ``run`` launches a program as ``graphs.run`` would, with no sync:
+    the load zeroes its counters, and the launch is followed, queued, by one
+    copy of its outputs into the caller's tensors ``into`` and of its
+    counters into a row of this object's. ``read`` brings the tensors the
+    caller names and every row to the host in one copy and syncs once,
+    under the card's lock, as a launch's own sync is; then each launch's
+    set-condition census is checked and its hand-kernel launches counted
+    (``Program.account``), raising as a launch does on a mismatch. A
+    program with a launch in flight is not freed (``_Slot.pending``). On
+    the plain executor (the CPU, or ``ENABLED`` off) ``run`` runs the
+    program plainly, as ``graphs.run`` does, and copies its outputs into
+    ``into``; ``read`` only copies. Use as a context manager: leaving it
+    syncs what is still in flight."""
+
+    # rows of counters made at once
+    ROWS = 64
+
+    def __init__(self, device):
+        self.device = _device_of(device)
+        # (slot, program, where its row starts among the blocks' counts,
+        # the row's width) of each launch in flight
+        self._pending: List[tuple] = []
+        self._blocks: List[torch.Tensor] = []    # int64 [ROWS, width] each
+        self._rows: List[torch.Tensor] = []      # the last block's free rows
+        self._at = 0                              # where its first starts
+
+    def run(self, kind: tuple, make: Callable[[], "Program"],
+            values: Dict[str, object], into: List[torch.Tensor],
+            key: Optional[tuple] = None, capture: bool = True) -> None:
+        """Launch the program of ``kind`` that ``make`` describes on
+        ``values``; its outputs, each as one dimension, are copied into
+        ``into``. ``key``: the program's shapes, where the values' own do
+        not name them (else they do, as in ``graphs.run``)."""
+        if not _device_program(self.device, capture):
+            prog = make()
+            prog.load(values)
+            prog.run_plain()
+            torch._foreach_copy_(into, [prog._flat(o) for o in prog.outputs])
+            return
+        devices = [self.device]
+        key = (_key_of(kind, devices, values) if key is None else
+               kind + tuple((d.type, d.index) for d in devices) + key)
+        with _held(key, devices, make, values, zero=True) as (slot, built):
+            width = slot.prog.counters.numel()
+            row, at = self._row(width)
+            slot.prog.enqueue(list(into) + [row])
+            slot.pending += 1
+            self._pending.append((slot, slot.prog, at, width))
+        if built:                       # the programs held grew
+            _trim(slot)
+
+    def _row(self, width: int) -> Tuple[torch.Tensor, int]:
+        """A free row of counters of ``width``, from blocks of ROWS, and
+        where it starts among the blocks' counts."""
+        if not self._rows or self._rows[0].numel() != width:
+            self._at = sum(b.numel() for b in self._blocks)
+            self._blocks.append(torch.empty((self.ROWS, width),
+                                            dtype=torch.int64,
+                                            device=self.device))
+            self._rows = list(self._blocks[-1].unbind(0))
+        at = self._at + (self.ROWS - len(self._rows)) * width
+        return self._rows.pop(0), at
+
+    def read(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        """``tensors`` (float64, on this device) on the host, flattened and
+        concatenated, in one copy and one sync; then every launch's
+        census, checked."""
+        flat = [t.reshape(-1) for t in tensors]
+        n = sum(t.numel() for t in flat)
+        if self.device.type != "cuda" or not self._pending:
+            return torch.cat(flat).cpu() if flat else torch.zeros(0)
+        flat += [b.view(-1).view(torch.float64) for b in self._blocks]
+        host = torch.empty(sum(t.numel() for t in flat), dtype=torch.float64,
+                           pin_memory=True)
+        with span("programs.run", key="run_seconds", add=_add_graphs):
+            with _card_lock(self.device):
+                host.copy_(torch.cat(flat), non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+        counts = host[n:].view(torch.int64).tolist()
+        pending, self._pending = self._pending, []
+        self._blocks, self._rows = [], []
+        try:
+            for _, prog, at, width in pending:
+                prog.account(counts[at:at + width])
+        finally:
+            _settle(pending)
+        return host[:n]
+
+    def __enter__(self) -> "Launches":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pending, self._pending = self._pending, []
+        self._blocks, self._rows = [], []
+        if pending:
+            with _card_lock(self.device):
+                torch.cuda.current_stream(self.device).synchronize()
+            _settle(pending)
+
+
+def _settle(pending: List[tuple]) -> None:
+    """The launches of ``pending`` have ended: their programs may be
+    freed again."""
+    for slot, *_ in pending:
+        with slot.lock:
+            slot.pending -= 1
 
 
 def _trim(keep: _Slot) -> None:
@@ -797,6 +998,8 @@ def _trim(keep: _Slot) -> None:
         if slot is keep or not slot.lock.acquire(blocking=False):
             continue
         try:
+            if slot.pending:
+                continue
             with _cache_lock:
                 if _CACHE.get(key) is slot:
                     del _CACHE[key]

@@ -332,14 +332,17 @@ def _spec_steps(ct, read_base, site_mask, conserved, with_genotype: bool,
     return sigma_step, snp_step, objective
 
 
-def _input_buffers(values: Dict[str, torch.Tensor], dev: torch.device):
+def _input_buffers(values: Dict[str, torch.Tensor], dev: torch.device,
+                   dtypes: Optional[Dict[str, torch.dtype]] = None):
     """A program's input buffers on ``dev``, one for every value (by its
-    name, also as an attribute of a namespace ``z``). Returns (z, the
-    buffers by name)."""
+    name, also as an attribute of a namespace ``z``), of the value's type
+    or the one ``dtypes`` names (a load converts). Returns (z, the buffers
+    by name)."""
     z = SimpleNamespace()
     inputs = {}
     for k, v in values.items():
-        inputs[k] = torch.empty(tuple(v.shape), dtype=v.dtype, device=dev)
+        dt = (dtypes or {}).get(k, v.dtype)
+        inputs[k] = torch.empty(tuple(v.shape), dtype=dt, device=dev)
         setattr(z, k, inputs[k])
     return z, inputs
 
@@ -369,56 +372,75 @@ def _ascent(ct, st: PhaseState, read_base, site_mask, conserved,
     members = st.sigma.dim() - 1 > lead
     if members:
         _first_member(read_base.unsqueeze(lead) & (st.sigma != 0), lead)
-    # a mask of the tables' shape gets the members' axis to broadcast over
-    per = ((lambda t: t.unsqueeze(lead)) if members and lead
-           else (lambda t: t))
-    fields = type(ct)._fields
-    values = {f"cell_{f}": getattr(ct, f) for f in fields}
+    values = {f"cell_{f}": getattr(ct, f) for f in type(ct)._fields}
     values.update(read_base=read_base, site_mask=site_mask,
                   conserved=conserved, sigma=st.sigma, delta=st.delta,
                   eta=st.eta)
 
     def make():
-        z, inputs = _input_buffers(values, dev)
-        z.entry = PhaseState(z.sigma, z.delta, z.eta)
-        z.cur = PhaseState(*(torch.zeros_like(a) for a in z.entry))
-        batch = tuple(st.sigma.shape[:-1])
-        z.active = torch.zeros(batch, dtype=torch.bool, device=dev)
-        z.prob = torch.zeros(batch, dtype=f64, device=dev)
-        z.count = torch.zeros((), dtype=torch.int64, device=dev)
-        z.more = torch.zeros((), dtype=torch.bool, device=dev)
-        KF.constants_on(dev)
-
-        def prepare():
-            cells = type(ct)(*(getattr(z, f"cell_{f}") for f in fields))
-            rb, sm, cons = per(z.read_base), per(z.site_mask), per(
-                z.conserved)
-            if fast:
-                # one build for all members of a table: their active-read
-                # set is the first member's
-                ft = _fast_tables_for(
-                    cells, z.read_base,
-                    z.sigma.select(lead, 0) if members else z.sigma,
-                    z.site_mask, split)
-                if members and lead:
-                    ft = KF.for_members(ft)
-                z.steps = _fast_steps(ft, rb, z.sigma, sm, cons,
-                                      with_genotype, keep_conserved, split)
-            else:
-                tabs = as_tables(cells)
-                if members and lead:
-                    tabs = CellTables(*(a.unsqueeze(lead) for a in tabs))
-                z.steps = _spec_steps(tabs, rb, sm, cons, with_genotype,
-                                      keep_conserved)
-
-        return graphs.Program(dev, inputs, _ascent_nodes(z, prepare),
-                              (*z.cur, z.prob, z.count))
+        z, inputs, nodes = _ascent_program(
+            type(ct), values, dev, tuple(st.sigma.shape[:-1]), with_genotype,
+            keep_conserved, split, fast)
+        return graphs.Program(dev, inputs, nodes, (*z.cur, z.prob, z.count))
 
     kind = ("ascent", type(ct).__name__, with_genotype, keep_conserved,
             split, fast, ASCENT_CHUNK)
     sg, dl, et, prob, trips = graphs.run(kind, dev, make, values,
                                          capture=fast)
     return PhaseState(sg, dl, et), prob, trips
+
+
+def _ascent_program(cells, values: Dict[str, torch.Tensor],
+                    dev: torch.device, batch: tuple, with_genotype: bool,
+                    keep_conserved: bool, split: bool, fast: bool,
+                    dtypes: Optional[Dict[str, torch.dtype]] = None):
+    """The description of ``_ascent``'s program over input buffers for
+    ``values`` (by name: ``cell_<field>`` of cells of the type ``cells``,
+    the masks, the entry state; buffer types as ``_input_buffers`` makes
+    them): (the namespace ``z`` of its
+    buffers, the input buffers by name, its nodes). ``batch``: the state's
+    leading axes; where they hold one more axis than the cells' (the
+    members that share each table), the members must share its
+    active-read set, which the caller checks before the program runs. The
+    final state is ``z.cur``, its objective ``z.prob``, the trips ``z.count``.
+    """
+    lead = len(values["cell_p"].shape) - 2
+    members = len(batch) > lead
+    # a mask of the tables' shape gets the members' axis to broadcast over
+    per = ((lambda t: t.unsqueeze(lead)) if members and lead
+           else (lambda t: t))
+    fields = cells._fields
+    z, inputs = _input_buffers(values, dev, dtypes)
+    z.entry = PhaseState(z.sigma, z.delta, z.eta)
+    z.cur = PhaseState(*(torch.zeros_like(a) for a in z.entry))
+    z.active = torch.zeros(batch, dtype=torch.bool, device=dev)
+    z.prob = torch.zeros(batch, dtype=f64, device=dev)
+    z.count = torch.zeros((), dtype=torch.int64, device=dev)
+    z.more = torch.zeros((), dtype=torch.bool, device=dev)
+    KF.constants_on(dev)
+
+    def prepare():
+        ct = cells(*(getattr(z, f"cell_{f}") for f in fields))
+        rb, sm, cons = per(z.read_base), per(z.site_mask), per(z.conserved)
+        if fast:
+            # one build for all members of a table: their active-read set
+            # is the first member's
+            ft = _fast_tables_for(
+                ct, z.read_base,
+                z.sigma.select(lead, 0) if members else z.sigma,
+                z.site_mask, split)
+            if members and lead:
+                ft = KF.for_members(ft)
+            z.steps = _fast_steps(ft, rb, z.sigma, sm, cons, with_genotype,
+                                  keep_conserved, split)
+        else:
+            tabs = as_tables(ct)
+            if members and lead:
+                tabs = CellTables(*(a.unsqueeze(lead) for a in tabs))
+            z.steps = _spec_steps(tabs, rb, sm, cons, with_genotype,
+                                  keep_conserved)
+
+    return z, inputs, _ascent_nodes(z, prepare)
 
 
 def _cross_optimize_fast_loop_it(ct, st: PhaseState, read_base, site_mask,
@@ -984,6 +1006,29 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
+def phase_work(K: int, I_pad: int, I0: int, enumeration: bool) -> int:
+    """The router's work of one region (cells x rounds,
+    ``utils/device.py``): 2^I0 · K · I_pad on the enumeration path (the
+    per-config ascents play the rounds' part), K · I_pad · (I0 // 4 + 1)
+    on the iterative one."""
+    if enumeration:
+        return (1 << min(I0, 40)) * K * I_pad
+    return K * I_pad * (I0 // 4 + 1)
+
+
+# cells an enumeration ascent's configurations hold at once (enum_chunk)
+ENUM_CHUNK_CELLS = 2 ** 24
+
+
+def enum_chunk(C: int, cells: int) -> int:
+    """Configurations an enumeration ascent takes at once, of ``C``, over
+    ``cells`` (K · I_pad, times the regions of a bucket): a power of two,
+    at most ENUM_CHUNK_CELLS cells in all, to bound the [configs, K, I]
+    temporaries."""
+    chunk = max(1, int(ENUM_CHUNK_CELLS // max(1, cells)))
+    return min(C, 1 << (chunk.bit_length() - 1))
+
+
 def phase_region(frags: FragmentMatrix, cands: CandidateSet,
                  cfg: CallerConfig, seed: int,
                  apply_downsampling: bool = False,
@@ -1014,11 +1059,8 @@ def phase_region(frags: FragmentMatrix, cands: CandidateSet,
                                                 apply_downsampling, devices)
                 return PhaseState(st.sigma[:K0], st.delta[:I0], st.eta[:I0])
     enumeration = I0 <= cfg.max_enum_snps
-    if enumeration:
-        work = (1 << min(I0, 40)) * K * I_pad
-    else:
-        work = K * I_pad * (I0 // 4 + 1)
-    placed = phase_placement(work, device, enumeration)
+    placed = phase_placement(phase_work(K, I_pad, I0, enumeration), device,
+                             enumeration)
     return phase_region_on(frags, cands, cfg, seed, apply_downsampling,
                            placed.device, placed_split(placed))
 
@@ -1028,8 +1070,9 @@ def phase_region_on(frags: FragmentMatrix, cands: CandidateSet,
                     device: torch.device, split: bool) -> PhaseState:
     """phase() for one region on exactly ``device`` in the given mode, past
     the placement: what ``phase_region`` runs once it has routed, and what
-    a bucket placed on the host, or in float64 on the card, runs for each
-    of its members."""
+    a bucket placed on the host runs for each of its members (a card run's
+    enumeration problems in float64 run the same programs in
+    ``enum_wave``)."""
     K0, I0 = frags.p.shape
     st = _phase_region_padded_impl(
         frags, cands, cfg, seed, apply_downsampling, K0, I0,
@@ -1080,8 +1123,6 @@ def _phase_region_padded_impl(frags, cands, cfg, seed, apply_downsampling,
         return float(f64_decision_margin_fast(ct.p, ct.q, st.sigma, st.delta,
                                               st.eta, read_base, site_mask))
 
-    ld = compute_ld_blocks(cands, frags)
-
     if I <= cfg.max_enum_snps:
         # enumeration path (phase.rs:1097-1122)
         configs = enumeration_order(I).astype(np.float64)          # [C,I0]
@@ -1095,8 +1136,7 @@ def _phase_region_padded_impl(frags, cands, cfg, seed, apply_downsampling,
         # each chunk's ascent program builds one set of tables for its
         # configs
         # chunk configs to bound peak memory (C·K·I intermediates)
-        chunk = max(1, int(2 ** 24 // max(1, K * I_pad)))
-        chunk = min(C, 1 << (chunk.bit_length() - 1))
+        chunk = enum_chunk(C, K * I_pad)
         best_prob = -np.inf
         best_st = None
         best_idx = -1
@@ -1136,6 +1176,7 @@ def _phase_region_padded_impl(frags, cands, cfg, seed, apply_downsampling,
         return best_st
 
     # iterative path (phase.rs:1123-1294)
+    ld = compute_ld_blocks(cands, frags)
     delta0, conserved_np = init_haplotypes_ld(cands, ld, rng)
     delta0 = np.pad(delta0, (0, I_pad - I), constant_values=1)
     conserved_np = np.pad(conserved_np, (0, I_pad - I))

@@ -112,6 +112,9 @@ class _RunCounters:
             stage[name] = v - self._totals.get(k, 0.0)
         for where, n in _device.PLACEMENTS.items():
             stage[f"phase_{where}_placed"] = n - self._placed[where]
+        # the safety net's recomputes are counted where there were none
+        # too, as n_f64_reruns is
+        stage.setdefault("phase_safety_recompute", 0.0)
         return dict(
             n_split_kept=_opt.N_SPLIT_KEPT - self._kept,
             n_f64_reruns=_opt.N_F64_RERUNS - self._reruns,

@@ -34,12 +34,14 @@ from ..utils.spans import STAGE_TOTALS, span  # noqa: F401
 
 
 # keys of a run's stage dict that count events, not seconds: the bucket
-# phasing's refusals, exact recomputes and bucket census (in STAGE_TOTALS),
-# and the phase problems placed on the host, on the card and in float64 on
-# the card (counted by utils/device.py, added by the caller)
+# phasing's refusals, exact recomputes and bucket census, the enumeration
+# waves' host syncs and regions (in STAGE_TOTALS), and the phase problems
+# placed on the host, on the card and in float64 on the card (counted by
+# utils/device.py, added by the caller)
 STAGE_COUNTS = frozenset((
     "phase_fused_refused", "phase_blockflip_exact", "phase_safety_recompute",
     "phase_buckets", "phase_enum_buckets", "phase_single_regions",
+    "phase_enum_wave_syncs", "phase_enum_wave_regions",
     "phase_host_placed", "phase_card_placed", "phase_card_f64_placed"))
 
 

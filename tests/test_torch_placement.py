@@ -5,12 +5,13 @@ Counterparts of ``tests/test_kernels_fast.py::test_phase_work_routing`` and
 call site hands the router (held against the JAX package's own router calls
 on the same regions), and outputs that do not depend on the placement:
 bytes equal with the router at its default, forced off (threshold 0) and
-forced all-host (threshold 2^62, which on a card run keeps the enumeration
-problems on the card in float64). The port's rule differs from the JAX
-package's below the threshold on a card run: an enumeration problem runs
-member by member in float64 on the card, an iterative one on the host. No
-card is present here, so a ``torch.device("cuda")`` is only ever compared,
-never allocated on: a spy stands in for the card's per-region calls.
+forced all-host (threshold 2^62). The port's rule differs from the JAX
+package's on a card run: an enumeration problem runs in float64 on the card
+at every size (the batched pipeline phases a wave's such problems as one
+stream of programs, ``phasing/enum_wave.py``), an iterative one below the
+threshold on the host. No card is present here, so a
+``torch.device("cuda")`` is only ever compared, never allocated on: a spy
+stands in for the card's per-region calls and for the wave.
 Tolerance: equality.
 """
 
@@ -59,9 +60,9 @@ def thresholds(monkeypatch):
 
 
 def test_phase_work_routing(thresholds):
-    """Below the threshold on a card run an enumeration problem runs in
-    float64 on the card and an iterative one on the host; at it and above
-    both run on the card in its own mode; a CPU run gets the CPU at every
+    """On a card run an enumeration problem runs in float64 on the card at
+    every size; an iterative one below the threshold on the host, at it
+    and above on the card in its own mode; a CPU run gets the CPU at every
     size."""
     t = D.MIN_ACCEL_PHASE_WORK
     P = D.Placement
@@ -70,8 +71,8 @@ def test_phase_work_routing(thresholds):
     assert D.phase_placement(t - 1, CARD) == P(CPU, False)
     assert D.phase_placement(1, CARD, enumeration=False) == P(CPU, False)
     for enum in (False, True):
-        assert D.phase_placement(t, CARD, enum) == P(CARD, False)
-        assert D.phase_placement(1 << 40, CARD, enum) == P(CARD, False)
+        assert D.phase_placement(t, CARD, enum) == P(CARD, enum)
+        assert D.phase_placement(1 << 40, CARD, enum) == P(CARD, enum)
         assert D.phase_placement(1, CPU, enum) == P(CPU, False)
         assert D.phase_placement(t - 1, CPU, enum) == P(CPU, False)
         assert D.phase_placement(1 << 40, CPU, enum) == P(CPU, False)
@@ -84,10 +85,10 @@ def test_phase_work_routing(thresholds):
 @pytest.mark.parametrize("value,below,at", [(0, None, CARD),
                                             (ALL_HOST, CPU, CPU)])
 def test_router_forced_off_and_all_host(monkeypatch, value, below, at):
-    """Off (0): everything on the run's device in its own mode. All-host
-    (2^62): every candidate call and iterative phase problem on the host,
-    every enumeration phase problem of a card run in float64 on the card;
-    a CPU run keeps the CPU either way."""
+    """Off (0): everything else on the run's device in its own mode.
+    All-host (2^62): every candidate call and iterative phase problem on
+    the host. Either way every enumeration phase problem of a card run runs
+    in float64 on the card, and a CPU run keeps the CPU."""
     monkeypatch.setattr(D, "MIN_ACCEL_PHASE_WORK", value)
     monkeypatch.setattr(D, "MIN_ACCEL_CELLS", value)
     P = D.Placement
@@ -95,10 +96,8 @@ def test_router_forced_off_and_all_host(monkeypatch, value, below, at):
     assert D.small_problem_device(1 << 40, CARD) == at
     assert D.phase_placement(0, CARD) == P(below or CARD, False)
     assert D.small_problem_device(0, CARD) == (below or CARD)
-    assert D.phase_placement(1 << 40, CARD, enumeration=True) == \
-        P(CARD, below is not None)
-    assert D.phase_placement(0, CARD, enumeration=True) == \
-        P(CARD, below is not None)
+    assert D.phase_placement(1 << 40, CARD, enumeration=True) == P(CARD, True)
+    assert D.phase_placement(0, CARD, enumeration=True) == P(CARD, True)
     for enum in (False, True):
         assert D.phase_placement(0, CPU, enum) == P(CPU, False)
         assert D.phase_placement(1 << 40, CPU, enum) == P(CPU, False)
@@ -128,8 +127,8 @@ def test_degraded_placement_surfaced(thresholds, caplog, monkeypatch):
     D.phase_placement(t, CARD, enumeration=True)
     assert D.DEGRADED_PLACEMENTS == before + 2
     assert D.PLACEMENTS["host"] == placed["host"] + 4
-    assert D.PLACEMENTS["card"] == placed["card"] + 2
-    assert D.PLACEMENTS["card_f64"] == placed["card_f64"] + 1
+    assert D.PLACEMENTS["card"] == placed["card"] + 1
+    assert D.PLACEMENTS["card_f64"] == placed["card_f64"] + 2
 
 
 def test_resolve_device_still_raises_without_a_card():
@@ -209,12 +208,14 @@ def _spy(monkeypatch, modules, name="phase_placement"):
 
 
 def _card_stand_in(monkeypatch):
-    """Stands in for the card in ``optimize.phase_region_on``: a call on
-    CARD is recorded as (the region's cell shape, device, split) and run on
-    the CPU in the same mode, so that nothing is allocated on a card.
-    Returns the list of recorded calls on CARD."""
+    """Stands in for the card in ``optimize.phase_region_on`` and in the
+    enumeration wave (``batch_driver.phase_enum_wave``): a call on CARD is
+    recorded as (the region's cell shape, device, split), one for each of
+    a wave's regions (in float64), and run on the CPU in the same mode, so
+    that nothing is allocated on a card. Returns the list of recorded
+    calls on CARD."""
     calls = []
-    orig = TO.phase_region_on
+    orig, orig_wave = TO.phase_region_on, TBD.phase_enum_wave
 
     def on(frags, cands, cfg, seed, apply_ds, device, split):
         if device == CARD:
@@ -222,7 +223,14 @@ def _card_stand_in(monkeypatch):
             device = CPU
         return orig(frags, cands, cfg, seed, apply_ds, device, split)
 
+    def wave(items, cfg, device):
+        if device == CARD:
+            calls.extend((it[0].p.shape, device, False) for it in items)
+            device = CPU
+        return orig_wave(items, cfg, device)
+
     monkeypatch.setattr(TO, "phase_region_on", on)
+    monkeypatch.setattr(TBD, "phase_enum_wave", wave)
     return calls
 
 
@@ -293,11 +301,10 @@ def test_bucket_below_the_threshold_goes_to_the_host(regions, monkeypatch):
 
 def test_small_enumeration_bucket_runs_in_f64_on_the_card(regions,
                                                           monkeypatch):
-    """A card run's enumeration bucket below the threshold calls
-    ``phase_region_on`` once per member with the run's device and
-    ``split=False`` (the per-region float64 path), lands on the CPU run's
-    states, is counted once in ``PLACEMENTS["card_f64"]`` and is no safety
-    rerun."""
+    """A card run's enumeration bucket below the threshold phases every
+    member in float64 on the run's device (the wave of per-region float64
+    programs), lands on the CPU run's states, is counted once in
+    ``PLACEMENTS["card_f64"]`` and is no safety rerun."""
     items, cfg, _, _ = regions
     enum = [t for t, _ in items if t[0].p.shape[1] <= cfg.max_enum_snps]
     K0, I0 = enum[0][0].p.shape

@@ -223,3 +223,44 @@ def test_the_coverage_counted_in_blocks_of_rows(monkeypatch):
     monkeypatch.setattr(TM, "COVER_ROWS", 37)
     for a, b in zip(whole, _port(2, False, True)):
         assert torch.equal(a, b)
+
+
+class _GroupLike:
+    """Stands in for a ``graphs.Group`` in the program cache: its load
+    takes the values alone, as a group's does."""
+
+    def __init__(self):
+        self.loads = 0
+
+    def load(self, values):
+        self.loads += 1
+
+    def build(self):
+        return {}
+
+    def launch(self):
+        return [torch.ones(1)], []
+
+    def free(self):
+        pass
+
+
+def test_a_group_is_built_and_loaded_through_the_program_cache(monkeypatch):
+    """A group (``device`` a list of shards) that runs as device programs
+    is built once and loaded at every call by ``graphs.run``'s cache."""
+    monkeypatch.setattr(graphs, "_device_program", lambda device, capture:
+                        True)
+    made = []
+
+    def make():
+        made.append(_GroupLike())
+        return made[-1]
+
+    try:
+        for _ in range(2):
+            out = graphs.run(("group_like",), [CPU, CPU], make,
+                             {"x": torch.zeros(3)})
+            assert torch.equal(out[0], torch.ones(1))
+        assert len(made) == 1 and made[0].loads == 2
+    finally:
+        graphs.free_all()

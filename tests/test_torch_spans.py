@@ -41,7 +41,7 @@ STAGE_KEYS = {
     "region_fragments", "region_phase", "region_assign", "region_records",
     "phase_buckets", "phase_tables", "phase_ascent1", "phase_blockflip",
     "phase_perturb", "phase_single_regions", "phase_host_placed",
-    "phase_card_placed", "phase_card_f64_placed"}
+    "phase_card_placed", "phase_card_f64_placed", "phase_safety_recompute"}
 
 
 @pytest.fixture
